@@ -1,4 +1,4 @@
-// imgio — native host-side image codec for the TPU framework.
+// imgio — native host-side image codec for the framework.
 //
 // Capability twin of the reference's vendored stb_image / stb_image_write
 // layer (reference: monolithic/include/stb_image.h, stb_image_write.h;

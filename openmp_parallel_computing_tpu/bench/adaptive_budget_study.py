@@ -1,8 +1,8 @@
 """Adaptive-ADMM-budget quality study (closed loop, CPU-friendly).
 
 Round 4 priced the reduced 1x3 warm-loop budget with the decayed dual
-carry at +32% throughput (results/tpu_v5e/dual_budget_r4.json) but left
-it a labeled option: its asymptotic closed-loop cost ran +0.16-0.18%
+carry as a throughput gain (bench.dual_budget_study) but left it a
+labeled option: its asymptotic closed-loop cost ran +0.16-0.18%
 over the shipped 1x5 budget. Round 5's hybrid
 (``MPCConfig.admm_iters_extra`` / ``admm_tol``) carries the duals at the
 reduced base budget and spends the extra iterations ONLY when the

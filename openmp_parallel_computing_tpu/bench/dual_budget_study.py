@@ -13,7 +13,7 @@ Usage::
 
     python -m openmp_parallel_computing_tpu.bench.dual_budget_study \
         [--batches 4096] [--steps 97] [--trials 3] \
-        [--out results/tpu_v5e/dual_budget_r4.json]
+        [--out chiprun_out/dual_budget.json]
 """
 
 from __future__ import annotations

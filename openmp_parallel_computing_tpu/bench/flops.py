@@ -2,9 +2,8 @@
 
 XLA's ``compiled.cost_analysis()`` counts loop bodies ONCE (trip counts
 are not multiplied in) and sees nothing inside a ``pallas_call`` — so it
-is useless for a roofline of a solver that is 5 nested scans deep with
-the hot math inside Pallas kernels. This walker does the multiplication
-the hardware does:
+is useless for a roofline of a solver that is 5 nested scans deep. This
+walker does the multiplication the hardware does:
 
 - ``scan`` bodies are counted ``length`` times;
 - ``pallas_call`` bodies are counted once per grid point
@@ -13,22 +12,24 @@ the hardware does:
 - ``while_loop`` trip counts are unknowable statically — counted once
   and reported in ``unknown_loops`` so the caller knows the number is a
   lower bound;
-- ``cond``/``custom_*`` branches recurse (cond takes the max branch).
+- ``cond``/``custom_*`` branches recurse (cond takes the max branch);
+- flops inside a named jitted call (a ``jit`` equation) are also tallied under
+  that name in ``by_call`` (nested calls count toward every enclosing
+  name), so a caller can see which functions hold the work.
 
 FLOP conventions (roofline-style, matching the hand counts previously in
 docs/DESIGN.md §2b): elementwise arith = 1 flop/element; ``dot_general``
 = 2·M·N·K·batch; comparisons/selects/copies = 0; transcendentals = 1
-(they occupy one VPU issue slot, which is what the solver's roofline is
-measured against).
+(one issue slot each, which is what the solver's roofline is measured
+against).
 
 HBM stream estimate: for each ``pallas_call``, bytes = Σ over
 inputs/outputs of block_bytes × grid points (an upper bound that ignores
-block revisiting and VMEM residency between grid steps); for plain XLA
+block revisiting and on-chip residency between grid steps); for plain XLA
 ops nothing is counted (fusion makes static per-op byte counts
 meaningless — use the compiled cost analysis for the XLA part instead).
 
-Used by the roofline study in docs/DESIGN.md §2g; guarded by
-tests/test_flops.py against closed-form counts.
+Guarded by tests/test_flops.py against closed-form counts.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ _REDUCE = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod",
            "reduce_and", "reduce_or", "cumsum", "cumlogsumexp",
            "cummax", "cummin", "cumprod", "argmax", "argmin"}
 # Recurse-through call-like primitives (count once).
-_CALLS = {"pjit", "closed_call", "core_call", "custom_jvp_call",
+_CALLS = {"pjit", "jit", "closed_call", "core_call", "custom_jvp_call",
           "custom_vjp_call", "custom_vjp_call_jaxpr", "remat", "checkpoint",
           "custom_partitioning", "shard_map"}
 
@@ -64,14 +65,17 @@ class Counts:
     pallas_hbm_bytes: float = 0.0      # block-stream upper bound
     unknown_loops: int = 0             # while_loops counted once
     by_prim: dict = field(default_factory=dict)
+    by_call: dict = field(default_factory=dict)   # pjit name -> flops
 
     def _bump(self, name: str, n: float, scale: float,
-              in_pallas: bool) -> None:
+              in_pallas: bool, calls: tuple = ()) -> None:
         v = n * scale
         self.flops += v
         if in_pallas:
             self.pallas_flops += v
         self.by_prim[name] = self.by_prim.get(name, 0.0) + v
+        for call in set(calls):
+            self.by_call[call] = self.by_call.get(call, 0.0) + v
 
 
 def _size(aval) -> float:
@@ -96,20 +100,23 @@ def _conv_flops(eqn) -> float:
     return 2.0 * out * ksp * kin
 
 
-def _walk(jaxpr, counts: Counts, scale: float, in_pallas: bool) -> None:
+def _walk(jaxpr, counts: Counts, scale: float, in_pallas: bool,
+          calls: tuple = ()) -> None:
     for eqn in jaxpr.eqns:
         name = eqn.primitive.name
         if name == "scan":
             inner = eqn.params["jaxpr"].jaxpr
-            _walk(inner, counts, scale * eqn.params["length"], in_pallas)
+            _walk(inner, counts, scale * eqn.params["length"], in_pallas,
+                  calls)
         elif name == "while":
             counts.unknown_loops += 1
-            _walk(eqn.params["body_jaxpr"].jaxpr, counts, scale, in_pallas)
+            _walk(eqn.params["body_jaxpr"].jaxpr, counts, scale, in_pallas,
+                  calls)
         elif name == "cond":
             best = None
             for br in eqn.params["branches"]:
                 sub = Counts()
-                _walk(br.jaxpr, sub, scale, in_pallas)
+                _walk(br.jaxpr, sub, scale, in_pallas, calls)
                 if best is None or sub.flops > best.flops:
                     best = sub
             if best is not None:
@@ -119,12 +126,14 @@ def _walk(jaxpr, counts: Counts, scale: float, in_pallas: bool) -> None:
                 counts.unknown_loops += best.unknown_loops
                 for k, v in best.by_prim.items():
                     counts.by_prim[k] = counts.by_prim.get(k, 0.0) + v
+                for k, v in best.by_call.items():
+                    counts.by_call[k] = counts.by_call.get(k, 0.0) + v
         elif name == "pallas_call":
             gm = eqn.params["grid_mapping"]
             grid = math.prod(gm.grid) if gm.grid else 1
             body = eqn.params["jaxpr"]
             body = body.jaxpr if hasattr(body, "jaxpr") else body
-            _walk(body, counts, scale * grid, True)
+            _walk(body, counts, scale * grid, True, calls)
             blk = 0.0
             for bm in gm.block_mappings:
                 shape = getattr(bm, "block_shape", None) or ()
@@ -142,18 +151,23 @@ def _walk(jaxpr, counts: Counts, scale: float, in_pallas: bool) -> None:
         elif name in _CALLS or "jaxpr" in eqn.params:
             inner = eqn.params.get("jaxpr") or eqn.params.get("call_jaxpr")
             if inner is not None:
+                named = (calls + (eqn.params.get("name", name),)
+                         if name in ("pjit", "jit") else calls)
                 _walk(inner.jaxpr if hasattr(inner, "jaxpr") else inner,
-                      counts, scale, in_pallas)
+                      counts, scale, in_pallas, named)
         elif name == "dot_general":
-            counts._bump(name, _dot_flops(eqn), scale, in_pallas)
+            counts._bump(name, _dot_flops(eqn), scale, in_pallas, calls)
         elif name == "conv_general_dilated":
-            counts._bump(name, _conv_flops(eqn), scale, in_pallas)
+            counts._bump(name, _conv_flops(eqn), scale, in_pallas, calls)
         elif name in _REDUCE:
-            counts._bump(name, _size(eqn.invars[0].aval), scale, in_pallas)
+            counts._bump(name, _size(eqn.invars[0].aval), scale, in_pallas,
+                         calls)
         elif name == "integer_pow":
-            counts._bump(name, _size(eqn.outvars[0].aval), scale, in_pallas)
+            counts._bump(name, _size(eqn.outvars[0].aval), scale, in_pallas,
+                         calls)
         elif name in _ELEMENTWISE_1:
-            counts._bump(name, _size(eqn.outvars[0].aval), scale, in_pallas)
+            counts._bump(name, _size(eqn.outvars[0].aval), scale, in_pallas,
+                         calls)
         # everything else (reshape/transpose/slice/select/compare/iota/
         # gather/dynamic_slice/convert): 0 flops by convention
 
@@ -168,7 +182,8 @@ def count_flops(fn, *args, **kwargs) -> Counts:
 
 def main() -> None:
     """Roofline inputs for the shipped solve at the headline config:
-    per-solve FLOPs (total and in-kernel) + kernel HBM stream bound."""
+    per-solve FLOPs, in total and inside the sweep's backward/forward
+    programs."""
     import argparse
     import json
 
@@ -194,8 +209,9 @@ def main() -> None:
     print(json.dumps({
         "batch": B, "horizon": args.horizon, "q_edge": args.q_edge,
         "flops_per_solve": round(c.flops / B, 1),
-        "kernel_flops_per_solve": round(c.pallas_flops / B, 1),
-        "kernel_hbm_bytes_per_solve_bound": round(c.pallas_hbm_bytes / B, 1),
+        "sweep_flops_per_solve": round(
+            (c.by_call.get("backward_sweep", 0.0)
+             + c.by_call.get("forward_sweep", 0.0)) / B, 1),
         "unknown_loops": c.unknown_loops,
         "top_prims_per_solve": {k: round(v / B, 1) for k, v in top},
     }))

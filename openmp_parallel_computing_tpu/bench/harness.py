@@ -1,4 +1,4 @@
-"""Benchmark harness: the reference's sweep methodology, TPU-native.
+"""Benchmark harness: the reference's sweep methodology on JAX devices.
 
 Reproduces the contract of ``monolithic/scripts/bench_and_plot_monolithic.sh``
 (C8) and ``microservices/grayscale/scripts/bench_grayscale_service.sh`` (C11):
@@ -32,7 +32,6 @@ import numpy as np
 
 from openmp_parallel_computing_tpu import imgio
 from openmp_parallel_computing_tpu.ops.runner import make_runner, pad_rows
-from openmp_parallel_computing_tpu.utils.timing import sync
 
 
 @dataclasses.dataclass
@@ -69,13 +68,13 @@ def bench_kernel(image: str | Path | np.ndarray, workers=(1,), runs: int = 3,
         img, orig_h = pad_rows(jnp.asarray(chw), w)
         run = make_runner(kernel, passes, w, orig_h=orig_h)
         x = jax.device_put(img)
-        sync(run(x))  # compile outside the timed region
+        jax.block_until_ready(run(x))  # compile outside the timed region
 
         values = []
         cpu0 = time.process_time()
         for _ in range(runs):
             t0 = time.perf_counter()
-            sync(run(x))
+            jax.block_until_ready(run(x))
             values.append(time.perf_counter() - t0)
         cpu_pct = 100.0 * (time.process_time() - cpu0) / max(sum(values),
                                                             1e-9)

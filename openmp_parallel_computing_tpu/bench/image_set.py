@@ -6,15 +6,15 @@ The reference ships its benchmark inputs in-repo and names the runs in its
 committed results (``monolithic/results/``; inputs
 ``images/{test,half_of_a_mega_photo,more_than_one_mega_photo}.jpg``,
 canonical input named at ``README.md:28``). This module regenerates the
-equivalent artifacts — ``results/tpu_v5e/blur_halfmega/`` (CSV + plots via
-the harness) and ``results/tpu_v5e/edge_images_set.json`` — from the
+equivalent artifacts — ``<out>/blur_halfmega/`` (CSV + plots via the
+harness) and ``<out>/edge_images_set.json`` — from the
 in-package lossless re-encodes (``data.fixture_set()``), so both studies
 run from a clean checkout with no reference mount.
 
 Usage::
 
     python -m openmp_parallel_computing_tpu.bench.image_set \
-        [--runs 3] [--passes 10] [--out results/tpu_v5e]
+        [--runs 3] [--passes 10] [--out chiprun_out/image_set]
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--passes", type=int, default=10)
-    ap.add_argument("--out", default="results/tpu_v5e")
+    ap.add_argument("--out", default="results/image_set")
     args = ap.parse_args()
     rows = blur_halfmega(args.out, runs=args.runs, passes=args.passes)
     print(json.dumps({"blur_halfmega_avg_s": rows[0].avg_real_s}))

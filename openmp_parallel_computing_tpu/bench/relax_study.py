@@ -8,7 +8,7 @@ budget cut at equal final cost converts directly into solves/s.
 
 This is a QUALITY study, not a throughput bench: the solve is identical
 math on every backend/hardware (equivalence-tested), so it runs fine on
-CPU with the "reference" backend — pass ``--cpu`` on a TPU-attached box.
+CPU with the "reference" backend — pass ``--cpu`` on a GPU host.
 Quality metric: mean true final cost (tracking + control + edge, evaluated
 on the feasible projected controls) against a converged baseline
 (``--baseline-iters`` ADMM x iLQR, plain ADMM), plus the primal residual.
@@ -37,9 +37,9 @@ def run(scenarios: int, edge_refresh: str, relaxes, budgets,
     from openmp_parallel_computing_tpu.ops import xla_ref
     from openmp_parallel_computing_tpu.utils.config import MPCConfig
 
-    # Real 1080p Sobel features (XLA twin of the Pallas pipeline —
-    # bit-equivalent, tests/test_golden_parity.py) so the edge cost term
-    # sees the production texture statistics.
+    # Real 1080p Sobel features (the shipped perception ops, checked
+    # against the reference goldens in tests/test_golden_parity.py) so the
+    # edge cost term sees the production texture statistics.
     frame = data.load_frame_planar()
     edge_map = xla_ref.edge_pipeline(frame)[0].astype(jnp.float32)
 
@@ -163,7 +163,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (quality is hardware-"
-                         "independent; use when the TPU is busy/offline)")
+                         "independent; use when the GPU is busy/offline)")
     ap.add_argument("--scenarios", type=int, default=64)
     ap.add_argument("--edge-refresh", default="solve",
                     choices=("ilqr", "admm", "solve"))

@@ -4,20 +4,20 @@ Prices ``MPCConfig.sampler_dtype`` (docs/DESIGN.md §2m): the dense lanes
 sampler's cost at large point counts is the HBM materialization of the
 hat-weight tensors (~188 floats/point in f32 — the §2g floor) plus the
 f32 einsum passes; storing weights + mean-centered level residuals in
-bf16 halves those bytes and runs the contractions at the MXU's bf16
-rate, with all accumulation kept in f32. Quality bound per the config
+bf16 halves those bytes and runs the contractions at the tensor cores'
+bf16 rate, with all accumulation kept in f32. Quality bound per the config
 docstring (~2^-8 of a pyramid cell on positions); closed-loop quality in
 results/cpu/sampler_dtype_quality.json.
 
 Methodology identical to bench.py / dual_budget_study: device-resident
 ``receding_horizon_frames`` windows (per-step 1080p perception, ring of
-8 distinct frames), median of trials, result-dependent fetch sync.
+8 distinct frames), median of trials.
 
 Usage::
 
     python -m openmp_parallel_computing_tpu.bench.sampler_dtype_study \
         [--batches 4096,8192,16384] [--horizons 20,50] [--steps 97] \
-        [--trials 3] [--out results/tpu_v5e/sampler_dtype_r5.json]
+        [--trials 3] [--out chiprun_out/sampler_dtype.json]
 """
 
 from __future__ import annotations

@@ -9,8 +9,8 @@ times the scenarios"). Efficiency = throughput(N) / (N * throughput(1)).
 
 On a single-chip environment this runs on the virtual CPU mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``) as a functional
-rehearsal; on a real pod slice the same entry point measures true ICI/DCN
-efficiency. CSV schema: ``devices,scenarios,avg_s,std_s,solves_per_s,
+rehearsal; on a multi-GPU host the same entry point measures the true
+efficiency over NVLink. CSV schema: ``devices,scenarios,avg_s,std_s,solves_per_s,
 efficiency``.
 """
 
@@ -29,7 +29,6 @@ from openmp_parallel_computing_tpu.models.mpc import (
     VisualServoMPC,
 )
 from openmp_parallel_computing_tpu.utils.config import MPCConfig
-from openmp_parallel_computing_tpu.utils.timing import sync
 
 
 def measure_scaling(cfg: MPCConfig | None = None, device_counts=None,
@@ -54,11 +53,11 @@ def measure_scaling(cfg: MPCConfig | None = None, device_counts=None,
         n_scen = scen_per_device * d
         scen = VisualServoMPC(cfg).random_scenarios(
             jax.random.PRNGKey(0), n_scen)
-        sync(dmpc.solve(frame, scen))  # compile
+        jax.block_until_ready(dmpc.solve(frame, scen))  # compile
         values = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            sync(dmpc.solve(frame, scen))
+            jax.block_until_ready(dmpc.solve(frame, scen))
             values.append(time.perf_counter() - t0)
         mean = float(np.mean(values))
         tp = n_scen / mean

@@ -10,7 +10,7 @@ real 1080p perception with a depth-mismatched plant and measures:
    learning), plus the depth-estimate error trajectory. Mismatch is the
    overshoot direction (prior z0 above the true depths), where depth
    error measurably hurts IBVS tracking.
-2. PRICE (run on the TPU): throughput of the adaptive scan loop vs the
+2. PRICE (run on the GPU): throughput of the adaptive scan loop vs the
    plain ``receding_horizon_frames`` at the same batch — what the
    per-frame sysid step (a handful of (B, m) ops + optimizer update)
    costs next to the solver.
@@ -20,7 +20,7 @@ Usage::
     python -m ...bench.sysid_loop_study --cpu --quality \
         --out results/cpu/sysid_loop_r5.json
     python -m ...bench.sysid_loop_study --price --batches 1024,4096 \
-        --out results/tpu_v5e/sysid_loop_r5.json
+        --out chiprun_out/sysid_loop.json
 """
 
 from __future__ import annotations

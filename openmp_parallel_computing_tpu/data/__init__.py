@@ -64,3 +64,14 @@ def load_frame_planar():
     import numpy as np
 
     return jnp.asarray(np.transpose(load_frame_hwc(), (2, 0, 1)))
+
+
+def frame_ring(frame, n: int):
+    """n distinct (C, H, W) frames from one: cyclic column shifts — a
+    different image to the perception ops every step (their work is
+    content-independent) while edge statistics stay production-like."""
+    import jax.numpy as jnp
+
+    shift = frame.shape[-1] // n
+    return jnp.stack([jnp.roll(frame, k * shift, axis=-1)
+                      for k in range(n)])

@@ -13,25 +13,59 @@ visibility timeout, and workers are plain processes that can be restarted
 (or scaled: ``--workers N`` is the replication recipe of
 ``event-driven/README.md:57-73``).
 
-Note for single-accelerator hosts: device claims serialize across
-processes, so run ``--workers 1`` when one TPU chip is attached (extra
-workers would queue behind each other on the device, not add throughput).
+One JAX process per GPU: a JAX process reserves most of a card's memory
+when it first uses it, so a second worker on the same card fails for want
+of memory. The launcher therefore starts at most one worker per visible
+GPU and pins each to its own card (``CUDA_VISIBLE_DEVICES``); on a host
+without GPUs the workers run on the CPU as requested.
 """
 
 from __future__ import annotations
 
 import argparse
 import multiprocessing as mp
+import os
 import signal
+import subprocess
 import sys
 import threading
 
 from openmp_parallel_computing_tpu.utils.config import DispatchConfig
 
 
-def _worker_main(cfg: DispatchConfig) -> None:
-    from openmp_parallel_computing_tpu.dispatch.worker import Worker
+def visible_gpus() -> list[str]:
+    """Ids of the GPUs this process may hand to its children, found without
+    starting JAX (which would claim a card): ``CUDA_VISIBLE_DEVICES`` when
+    set, else nvidia-smi's list; empty on a host without GPUs."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [g.strip() for g in env.split(",") if g.strip()]
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [g.strip() for g in out.splitlines() if g.strip()]
 
+
+def plan_workers(requested: int, gpus: list[str]) -> list[dict[str, str]]:
+    """The environment of each worker to start: one per GPU at most, each
+    pinned to its own card; ``requested`` CPU workers when there is no
+    GPU."""
+    if not gpus:
+        return [{} for _ in range(max(1, requested))]
+    return [{"CUDA_VISIBLE_DEVICES": g} for g in gpus[:max(1, requested)]]
+
+
+def _worker_main(cfg: DispatchConfig, env: dict[str, str]) -> None:
+    os.environ.update(env)          # before JAX first touches a device
+    from openmp_parallel_computing_tpu.dispatch.worker import Worker
+    from openmp_parallel_computing_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     Worker(cfg).run()
 
 
@@ -83,15 +117,19 @@ def main(argv=None) -> int:
         _HttpClient(url, retries=20, retry_delay_s=0.25).json(
             "GET", "/healthz")  # wait for the broker to come up
         cfg.root = url
-    workers = [ctx.Process(target=_worker_main, args=(cfg,), daemon=True)
-               for _ in range(args.workers)]
+    envs = plan_workers(args.workers, visible_gpus())
+    if len(envs) < args.workers:
+        print(f"starting {len(envs)} worker(s), one per visible GPU, "
+              f"not the {args.workers} requested")
+    workers = [ctx.Process(target=_worker_main, args=(cfg, env), daemon=True)
+               for env in envs]
     for w in workers:
         w.start()
 
     from openmp_parallel_computing_tpu.dispatch.frontend import serve
 
     httpd, state = serve(cfg, port=args.port)
-    print(f"frontend on :{args.port}, {args.workers} worker(s), "
+    print(f"frontend on :{args.port}, {len(workers)} worker(s), "
           f"root={cfg.root}")
 
     def shutdown(*_):

@@ -4,7 +4,7 @@ The frontend validates before publishing (bad form values become a 400,
 mirroring the serve tier's compile-churn clamps, serve/server.py
 ALLOWED_HORIZONS), and the worker re-validates before building an engine
 (defense in depth: a job published by another producer must not be able to
-key minutes-long compiles on the single relayed TPU with arbitrary values,
+key long first compiles with arbitrary values,
 nor crash-loop the worker on malformed payloads). Kept free of jax imports
 so the frontend stays light.
 """

@@ -3,8 +3,10 @@
 Capability twin of the reference's L0 layer (vendored stb_image /
 stb_image_write, used as ``stbi_load`` at ``monolithic/src/main.c:21`` and
 ``stbi_write_png`` at ``:41``). Primary path is the framework's native C++
-codec (``native/imgio/imgio.cpp``, libjpeg/libpng) bound via ctypes; if the
-shared library has not been built, falls back to Pillow.
+codec (``native/imgio/imgio.cpp``, libjpeg/libpng) bound via ctypes. Where
+it cannot be built or loaded (no libpng/libjpeg on the host), PNGs go
+through the standard-library codec in ``imgio.png`` and other formats
+through Pillow.
 
 API: ``load(path) -> (H, W, C) u8 ndarray``; ``save_png(path, img)``.
 Planar conversion for the device layout lives in ``ops`` (hwc_to_chw).
@@ -19,11 +21,13 @@ from pathlib import Path
 
 import numpy as np
 
+from openmp_parallel_computing_tpu.imgio import png
+
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _NATIVE_DIR = _REPO_ROOT / "native"
 _LIB_PATH = _NATIVE_DIR / "build" / "libimgio.so"
 
-_lib = None
+_lib = None          # the loaded codec; False once it failed to load
 
 
 def build_native(force: bool = False) -> bool:
@@ -41,10 +45,15 @@ def build_native(force: bool = False) -> bool:
 def _load_lib():
     global _lib
     if _lib is not None:
-        return _lib
+        return _lib or None
     if not _LIB_PATH.exists() and not build_native():
+        _lib = False
         return None
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError:                 # built elsewhere, libpng missing here
+        _lib = False
+        return None
     lib.imgio_load.restype = ctypes.POINTER(ctypes.c_ubyte)
     lib.imgio_load.argtypes = [ctypes.c_char_p] + [
         ctypes.POINTER(ctypes.c_int)] * 3
@@ -68,6 +77,13 @@ def load(path: str | os.PathLike) -> np.ndarray:
     """Decode a JPEG/PNG file to an interleaved (H, W, C) u8 array."""
     lib = _load_lib()
     if lib is None:
+        with open(path, "rb") as f:
+            head = f.read(len(png.SIGNATURE))
+        if head == png.SIGNATURE:
+            try:
+                return png.decode(Path(path).read_bytes())
+            except ValueError:      # palette / 16-bit / interlaced
+                pass
         return _load_pil(path)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     ptr = lib.imgio_load(str(path).encode(), ctypes.byref(w), ctypes.byref(h),
@@ -96,7 +112,8 @@ def save_png(path: str | os.PathLike, img: np.ndarray,
     h, w, c = img.shape
     lib = _load_lib()
     if lib is None:
-        return _save_pil(path, img)
+        Path(path).write_bytes(png.encode(img, compression))
+        return
     ok = lib.imgio_save_png(
         str(path).encode(), img.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
         w, h, c, w * c, compression)
@@ -151,9 +168,3 @@ def _load_pil(path) -> np.ndarray:
     if arr.ndim == 2:
         arr = arr[..., None]
     return np.ascontiguousarray(arr, dtype=np.uint8)
-
-
-def _save_pil(path, img: np.ndarray) -> None:
-    from PIL import Image
-
-    Image.fromarray(img.squeeze(-1) if img.shape[-1] == 1 else img).save(path)

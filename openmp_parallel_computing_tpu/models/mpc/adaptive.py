@@ -20,10 +20,8 @@ Two equivalent drivers (equivalence-tested):
   (optimizer state included), so a restarted adaptive controller
   resumes from its last depth estimates instead of relearning.
 
-Quality/price artifacts: results/cpu/sysid_loop_r5.json (closed-loop
-cost with/without adaptation under mismatched depths) and
-results/tpu_v5e/sysid_loop_r5.json (on-chip throughput price);
-docs/DESIGN.md §2k.
+Quality artifact: results/cpu/sysid_loop_r5.json (closed-loop cost
+with/without adaptation under mismatched depths); docs/DESIGN.md §2k.
 """
 
 from __future__ import annotations

@@ -49,16 +49,17 @@ def separable_sample(field: jax.Array, xy: jax.Array) -> jax.Array:
     hat-function weight vectors (at most two nonzeros each). Materializing
     the weights densely turns sampling into batched contractions that run on
     the vector/matrix units instead of per-index gathers — the same values
-    as ``bilinear_sample`` (verified in tests), orders of magnitude faster
-    on TPU for the solver's sampling volume. xy is (..., 2) in pixel units,
-    clamped to the border.
+    as ``bilinear_sample`` (verified in tests), and far cheaper than
+    per-index gathers at the solver's sampling volume. xy is (..., 2) in
+    pixel units, clamped to the border.
     """
     hf, wf = field.shape
     x = _clip_coord(xy[..., 0], float(wf - 1))
     y = _clip_coord(xy[..., 1], float(hf - 1))
     wx = _hat_weights(x, wf)                                  # (..., Wf)
     wy = _hat_weights(y, hf)                                  # (..., Hf)
-    return jnp.einsum("...i,ij,...j->...", wy, field, wx)
+    return jnp.einsum("...i,ij,...j->...", wy, field, wx,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _clip_coord(x: jax.Array, hi: float) -> jax.Array:
@@ -121,13 +122,11 @@ def edge_cost(edge_map: jax.Array, p: jax.Array) -> jax.Array:
 # frame, coarse-to-fine, like a soft distance transform.
 #
 # The base scale is 16, not 1: the solver samples the pyramid tens of
-# thousands of times per sweep, and per-index XLA gathers dominated the
-# solve on a v5e chip (535 ms/step at 256 scenarios, regardless of level
-# size). Sampling is therefore done with *dense separable weights*
-# (``separable_sample``): bilinear interpolation expressed as two tiny
-# contractions against the whole level — pure VPU/MXU math, no gathers —
-# which requires levels small enough that an (N_points x W_level)
-# weight product stays cheap. At scale 16 a 1080p map is 68x120; the ~16 px
+# thousands of times per sweep, too many for per-index gathers. Sampling
+# is therefore done with *dense separable weights* (``separable_sample``):
+# bilinear interpolation expressed as two tiny contractions against the
+# whole level — no gathers — which requires levels small enough that an
+# (N_points x W_level) weight product stays cheap. At scale 16 a 1080p map is 68x120; the ~16 px
 # sampling resolution only bounds the edge-attraction field, not the MPC's
 # tracking precision (the quadratic tracking term is exact).
 PYRAMID_SCALES = (16, 64)
@@ -139,8 +138,8 @@ def avg_pool(field: jax.Array, s: int) -> jax.Array:
     Pooling windows are anchored at (0, 0) with all zero-padding on the
     high side (NOT XLA's "SAME", which splits the padding and shifts the
     window grid by pad//2 on non-divisible dims — that both breaks the
-    half-cell centering model in ``edge_cost_pyramid`` and misaligns the
-    fused Pallas pyramid kernel, which pools blocks [s*k, s*k+s)).
+    half-cell centering model in ``edge_cost_pyramid`` and misaligns
+    ``ops.edge_pyramid_base``, which pools blocks [s*k, s*k+s)).
     """
     if s == 1:
         return field
@@ -156,9 +155,9 @@ def build_cost_pyramid(edge_map: jax.Array,
     """Precompute the multi-scale edge field once per frame (device-resident,
     shared by every scenario in the batch).
 
-    Levels are built by chained pooling (each level pools the previous one)
-    so no single reduce_window needs a large-window scoped VMEM buffer —
-    a 64x64 window on a 1080p f32 map otherwise exceeds the 16 MB limit.
+    Levels are built by chained pooling (each level pools the previous one),
+    so each reduce_window reads the small level before it, not the
+    full-resolution map.
     """
     levels = []
     prev = edge_map
@@ -191,13 +190,13 @@ def build_cost_pyramid_from_frame(frame: jax.Array,
     same levels ``build_cost_pyramid(edge_pipeline(frame)[0].astype(f32))``
     produces, without ever materializing the full-resolution edge map.
 
-    Level 0 comes straight from ``ops.pipeline.edge_pyramid_base`` — one
-    Pallas kernel computing luma → Sobel → per-block mean (bit-exact with
-    the staged path: block sums of u8-valued magnitudes are integers below
-    2^24, so f32 accumulation order cannot change them). Higher levels
-    chain-pool level 0 exactly like ``build_cost_pyramid``.
+    Level 0 comes straight from ``ops.edge_pyramid_base`` — luma → Sobel →
+    per-block mean in one fused XLA computation (bit-exact with the staged
+    path: block sums of u8-valued magnitudes are integers below 2^24, so
+    f32 accumulation order cannot change them). Higher levels chain-pool
+    level 0 exactly like ``build_cost_pyramid``.
     """
-    from openmp_parallel_computing_tpu.ops.pipeline import edge_pyramid_base
+    from openmp_parallel_computing_tpu.ops import edge_pyramid_base
 
     return pyramid_from_base(edge_pyramid_base(frame, s=scales[0]), scales)
 
@@ -266,6 +265,7 @@ def edge_cost_pyramid_xy(pyramid, x: jax.Array, y: jax.Array,
         mu = jnp.mean(level) if dt != jnp.float32 else 0.0
         e = mu + jnp.einsum("...i,ij,...j->...", wy,
                             (level - mu).astype(dt), wx,
+                            precision=jax.lax.Precision.HIGHEST,
                             preferred_element_type=jnp.float32)
         total = total + (1.0 - e / 255.0)
     return jnp.mean(total, axis=1) / len(pyramid)
@@ -278,8 +278,7 @@ def edge_vg_pyramid_xy(pyramid, x: jax.Array, y: jax.Array,
     computes the per-state costs AND d(sum(costs))/d(x, y) — the exact
     pair ``_SweepLanes`` needs per edge linearization — without autodiff.
 
-    Same contract as ``sampler_pallas.edge_vg_lanes``: returns
-    ``(vals (K, *B), gx (K, m, *B), gy (K, m, *B))``. The gradient
+    Returns ``(vals (K, *B), gx (K, m, *B), gy (K, m, *B))``. The gradient
     formulas are the hat-weight one-hot-pair derivatives autodiff produces
     from ``_hat_weights`` (floor carries zero gradient; the border mask
     passes ON the border, blocks strictly outside — ``_clip_coord``'s
@@ -288,11 +287,10 @@ def edge_vg_pyramid_xy(pyramid, x: jax.Array, y: jax.Array,
 
     Why it exists: the autodiff path materializes the forward weight
     tensors AND the backward pass's rebuilt weights + cotangent products
-    in HBM — the dominant per-solve cost at large point counts
-    (docs/DESIGN.md §2g: the 16k-batch edge glue). Building ``w`` and
+    in device memory — the dominant sampling cost at large point counts
+    (docs/DESIGN.md §2g). Building ``w`` and
     ``dw`` together from one one-hot pair and contracting each level
-    exactly twice is the leanest dense-weight formulation; the round-4
-    sampler study A/Bs it on-chip.
+    exactly twice is the leanest dense-weight formulation.
 
     ``dtype``: storage dtype for the weight tensors and level (None =
     float32, bit-identical to the historical path). Coordinates, cell
@@ -318,8 +316,8 @@ def edge_vg_pyramid_xy(pyramid, x: jax.Array, y: jax.Array,
 
         def w_dw(cl, size):
             """Hat weights and their d/d(level coord) from ONE one-hot
-            pair (same trick as the Pallas kernel): with a = onehot(c0),
-            b = onehot(c0+1): w = a + f*(b-a), dw = b - a. Stored in
+            pair: with a = onehot(c0), b = onehot(c0+1):
+            w = a + f*(b-a), dw = b - a. Stored in
             ``dt``; the cell fraction ``f`` is computed in the coord
             dtype (f32) BEFORE rounding, so bf16 costs one rounding of
             the final weights, not cancellation on the coordinates."""
@@ -345,8 +343,10 @@ def edge_vg_pyramid_xy(pyramid, x: jax.Array, y: jax.Array,
         wx, dwx = w_dw(xl, wf)                        # (K, m, *B, wf)
         wy, dwy = w_dw(yl, hf)                        # (K, m, *B, hf)
         t2 = jnp.einsum("...i,ij->...j", wy, lv,      # (K, m, *B, wf)
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
         t1 = jnp.einsum("...j,ij->...i", wx, lv,      # (K, m, *B, hf)
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
         e = mu + jnp.sum(wy * t1, axis=-1)            # == wy . L . wx
         total = total + (1.0 - e * (1.0 / 255.0))

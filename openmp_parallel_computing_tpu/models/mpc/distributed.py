@@ -1,26 +1,25 @@
 """Pod-scale scenario dispatch: the MPC solve sharded over a device mesh.
 
-BASELINE config 5 ("pod-scale MPC: 4096 scenarios sharded across hosts, ADMM
-QP with ICI collectives, H=50"). Realized with ``shard_map`` so each device
-runs the fused whole-sweep Pallas solver (``sweep_pallas``) on its local
+BASELINE config 5 ("pod-scale MPC: 4096 scenarios sharded across devices,
+ADMM QP with collectives, H=50"). Realized with ``shard_map`` so each
+device runs the lanes sweep solver (``models.mpc.sweep``) on its local
 scenario shard:
 
 - **scenarios** shard over BOTH mesh axes jointly (every device owns an
-  equal slice — the TPU-native replacement of the reference's competing
-  queue consumers, ``event-driven/grayscale_service/app.py:92-94``);
+  equal slice — the device analogue of the reference's competing queue
+  consumers, ``event-driven/grayscale_service/app.py:92-94``);
 - **perception** optionally shards the frame's rows over the model axis:
   ppermute halo exchange for the stencil, then each shard pools its edge
-  rows into partial cost-pyramid bands and a tiny ICI ``psum`` assembles
+  rows into partial cost-pyramid bands and a tiny ``psum`` assembles
   the global base level every device needs (~32 KB for 1080p, vs the
   ~8 MB edge-plane all_gather it replaces — the solver only ever samples
   the pooled pyramid, never the full-res edge map);
 - the ADMM/iLQR solve itself needs NO communication; the only mesh-wide
-  traffic after perception is the psum/pmax of the diagnostics — which is
-  what makes >=85% multi-host scaling efficiency attainable.
+  traffic after perception is the pmean/pmax of the diagnostics.
 
 Multi-host: call ``parallel.initialize_multihost()`` first (one process per
 host); each host passes its process-local scenario slice and
-``shard_scenarios`` assembles the global array over DCN.
+``shard_scenarios`` assembles the global array across processes.
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from openmp_parallel_computing_tpu import parallel
 from openmp_parallel_computing_tpu.models.mpc import costs
 from openmp_parallel_computing_tpu.models.mpc import solver as _solver
 from openmp_parallel_computing_tpu.models.mpc.solver import Scenario
-from openmp_parallel_computing_tpu.ops.pipeline import (
+from openmp_parallel_computing_tpu.ops import (
     edge_pipeline,
     edge_pyramid_base,
 )
@@ -43,6 +42,50 @@ from openmp_parallel_computing_tpu.utils.config import MPCConfig
 
 DATA = parallel.DATA_AXIS
 MODEL = parallel.MODEL_AXIS
+
+
+def perception_base(frame_local, n_model: int):
+    """Cost-pyramid base level and the full frame's (H, W) from this
+    device's frame block (the whole frame when ``n_model == 1``, else a
+    row shard over the model axis). Runs inside ``shard_map``."""
+    # With model-axis sharding each device holds a row shard; halos ride
+    # a ppermute, then — because every scenario only ever samples the
+    # POOLED cost pyramid — each shard pools its own edge rows into
+    # partial pyramid-base bands and a tiny psum assembles the global
+    # base level. The collective payload is the (ceil(H/16), ceil(W/16))
+    # f32 base (~32 KB for 1080p) instead of the full-res edge plane
+    # (~8 MB all_gather). Bit-exact with the single-device pyramid: band
+    # sums of u8-valued magnitudes are integers < 2^24, exact in f32
+    # under any summation order or sharding split.
+    s0 = costs.PYRAMID_SCALES[0]
+    if n_model > 1:
+        c, h_loc, w = frame_local.shape
+        h = h_loc * n_model
+        top, bottom = collectives.halo_exchange_rows(frame_local, MODEL)
+        ext = jnp.concatenate([top, frame_local, bottom], axis=1)
+        rows = edge_pipeline(ext, border="none")[0, 1:-1]
+        rows = _border_mask_rows(rows, h, w, MODEL, h_loc)
+        rows = rows.astype(jnp.float32)
+        # local column pooling (full width is device-local) ...
+        wb = -(-w // s0)
+        colpool = jnp.pad(rows, ((0, 0), (0, -w % s0)))
+        colpool = colpool.reshape(h_loc, wb, s0).sum(-1)
+        # ... then scatter local rows into the global band grid via a 0/1
+        # assignment matmul (shard offsets are traced). HIGHEST: band sums
+        # reach 255*16*16 = 65,280, which a TF32 product would round.
+        r0 = jax.lax.axis_index(MODEL) * h_loc
+        nb = -(-h // s0)
+        band = (r0 + jnp.arange(h_loc)) // s0
+        assign = (jnp.arange(nb)[:, None]
+                  == band[None, :]).astype(jnp.float32)
+        bands = jnp.matmul(assign, colpool,
+                           precision=jax.lax.Precision.HIGHEST)
+        level0 = jax.lax.psum(bands, MODEL) / float(s0 * s0)
+        shape = (h, w)
+    else:
+        level0 = edge_pyramid_base(frame_local, s=s0)
+        shape = frame_local.shape[1:]
+    return level0, shape
 
 
 class DistributedMPC:
@@ -59,49 +102,11 @@ class DistributedMPC:
         mesh = self.mesh
         n_model = mesh.shape[MODEL]
 
-        solve_local = {
-            "sweep": _solver._solve_batch_sweep,
-            "fused": _solver._solve_batch_fused,
-        }.get(cfg.backend)
+        solve_local = (_solver._solve_batch_sweep if cfg.backend == "sweep"
+                       else None)
 
         def local(frame_local, scen_local: Scenario):
-            # Perception. With model-axis sharding each device holds a row
-            # shard; halos ride ICI, then — because every scenario only
-            # ever samples the POOLED cost pyramid — each shard pools its
-            # own edge rows into partial pyramid-base bands and a tiny
-            # psum assembles the global base level. The collective payload
-            # is the (ceil(H/16), ceil(W/16)) f32 base (~32 KB for 1080p)
-            # instead of the full-res edge plane (~8 MB all_gather).
-            # Bit-exact with the single-device pyramid: band sums of
-            # u8-valued magnitudes are integers < 2^24, exact in f32
-            # under any summation order or sharding split.
-            s0 = costs.PYRAMID_SCALES[0]
-            if n_model > 1:
-                c, h_loc, w = frame_local.shape
-                h = h_loc * n_model
-                top, bottom = collectives.halo_exchange_rows(frame_local,
-                                                             MODEL)
-                ext = jnp.concatenate([top, frame_local, bottom], axis=1)
-                rows = edge_pipeline(ext, border="none")[0, 1:-1]
-                rows = _border_mask_rows(rows, h, w, MODEL, h_loc)
-                rows = rows.astype(jnp.float32)
-                # local column pooling (full width is device-local) ...
-                wb = -(-w // s0)
-                colpool = jnp.pad(rows, ((0, 0), (0, -w % s0)))
-                colpool = colpool.reshape(h_loc, wb, s0).sum(-1)
-                # ... then scatter local rows into the global band grid
-                # via a 0/1 assignment matmul (shard offsets are traced).
-                r0 = jax.lax.axis_index(MODEL) * h_loc
-                nb = -(-h // s0)
-                band = (r0 + jnp.arange(h_loc)) // s0
-                assign = (jnp.arange(nb)[:, None]
-                          == band[None, :]).astype(jnp.float32)
-                level0 = jax.lax.psum(assign @ colpool,
-                                      MODEL) / float(s0 * s0)
-                shape = (h, w)
-            else:
-                level0 = edge_pyramid_base(frame_local, s=s0)
-                shape = frame_local.shape[1:]
+            level0, shape = perception_base(frame_local, n_model)
 
             pyramid = costs.pyramid_from_base(level0)
             if solve_local is not None:
@@ -139,7 +144,7 @@ class DistributedMPC:
 
         Single-process: ``scen`` is the global batch. Multi-host: ``scen``
         is this process's LOCAL slice; the global array is assembled from
-        per-process shards over DCN."""
+        per-process shards."""
         sharding = NamedSharding(self.mesh, P((DATA, MODEL)))
         if jax.process_count() > 1:
             return jax.tree.map(

@@ -51,7 +51,8 @@ def interaction_matrix(p: jax.Array, depth: jax.Array) -> jax.Array:
 def step_unclamped(p: jax.Array, u: jax.Array, depth: jax.Array,
                    dt: float) -> jax.Array:
     """One Euler step of the smooth feature dynamics (no trust region)."""
-    return p + dt * interaction_matrix(p, depth) @ u
+    return p + dt * jnp.matmul(interaction_matrix(p, depth), u,
+                               precision=jax.lax.Precision.HIGHEST)
 
 
 def step(p: jax.Array, u: jax.Array, depth: jax.Array,
@@ -86,8 +87,8 @@ def linearize(p: jax.Array, u: jax.Array, depth: jax.Array, dt: float):
     Riccati sweep would zero the gains exactly where the solver needs
     authority to pull a saturated candidate back (the line-search
     J-comparison plus the finite-J candidate pick already absorb the
-    local-model mismatch). All backends (reference, fused, the Pallas
-    sweep kernels, and ``linearize_analytic``) share this convention.
+    local-model mismatch). All backends (reference, the lanes sweep, and
+    ``linearize_analytic``) share this convention.
     """
     fx = jax.jacrev(lambda q: step_unclamped(q, u, depth, dt))(p)
     fu = dt * interaction_matrix(p, depth)
@@ -123,7 +124,8 @@ def linearize_analytic(p: jax.Array, u: jax.Array, depth: jax.Array,
     m = pts.shape[0]
     eye_m = jnp.eye(m, dtype=p.dtype)
     # (m,2,2) -> block-diagonal (2m, 2m) via outer product with basis.
-    bd = jnp.einsum("mij,mn->minj", blocks, eye_m).reshape(2 * m, 2 * m)
+    bd = jnp.einsum("mij,mn->minj", blocks, eye_m,
+                    precision=jax.lax.Precision.HIGHEST).reshape(2 * m, 2 * m)
     fx = jnp.eye(2 * m, dtype=p.dtype) + dt * bd
     fu = dt * interaction_matrix(p, depth)
     return fx, fu

@@ -4,8 +4,11 @@ gain-feedback forward rollout — all as ``lax.scan`` programs.
 The backward recursion is the block-structured QP solve of the BASELINE
 north star ("ADMM/Riccati sweep over the horizon"): for the batched MPC each
 per-step operation is a small (2m x 2m / 2m x 6) matrix product which, once
-vmapped over hundreds of scenarios, becomes large batched matmuls that XLA
-lays onto the MXU.
+vmapped over hundreds of scenarios, becomes large batched matmuls.
+
+Every contraction runs at ``Precision.HIGHEST``: this module is the plain
+reference the sweep backend is tested against, so a float32 product must
+not drop to a reduced-precision matrix-unit mode (TF32 on the GPU).
 
 Conventions: state dim n, control dim c, horizon H.
 - dynamics jacobians  fx (H, n, n), fu (H, n, c)
@@ -15,10 +18,14 @@ Conventions: state dim n, control dim c, horizon H.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+_mm = functools.partial(jnp.matmul, precision=_HIGHEST)
 
 
 class Gains(NamedTuple):
@@ -31,10 +38,9 @@ def spd_solve(A: jax.Array, B: jax.Array) -> jax.Array:
     """Solve A X = B for small SPD A via fully unrolled Cholesky.
 
     A (..., n, n), B (..., n, k) with n known statically and small (the
-    control dimension, 6). Every operation is a batched elementwise op or
-    tiny contraction — on TPU this runs far faster than the batched LU of
-    ``jnp.linalg.solve`` (pivoting lowers to long scalarized sequences)
-    while vmapping cleanly over scenario batches.
+    control dimension, 6). Every operation is a batched elementwise op —
+    no pivoting, unlike the batched LU of ``jnp.linalg.solve`` — and it
+    vmaps cleanly over scenario batches.
     """
     n = A.shape[-1]
     # Cholesky: L rows built column-by-column, kept as a list of (.., n)
@@ -76,13 +82,13 @@ def backward(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
     def step(carry, inp):
         Vx, Vxx, dv1, dv2 = carry
         fx_k, fu_k, lx_k, lu_k, lxx_k, luu_k, lux_k = inp
-        Vxx_fx = Vxx @ fx_k                 # shared by Qxx and Qux
-        Vxx_fu = Vxx @ fu_k                 # shared by Quu
-        Qx = lx_k + fx_k.T @ Vx
-        Qu = lu_k + fu_k.T @ Vx
-        Qxx = lxx_k + fx_k.T @ Vxx_fx
-        Quu = luu_k + fu_k.T @ Vxx_fu
-        Qux = lux_k + fu_k.T @ Vxx_fx
+        Vxx_fx = _mm(Vxx, fx_k)                 # shared by Qxx and Qux
+        Vxx_fu = _mm(Vxx, fu_k)                 # shared by Quu
+        Qx = lx_k + _mm(fx_k.T, Vx)
+        Qu = lu_k + _mm(fu_k.T, Vx)
+        Qxx = lxx_k + _mm(fx_k.T, Vxx_fx)
+        Quu = luu_k + _mm(fu_k.T, Vxx_fu)
+        Qux = lux_k + _mm(fu_k.T, Vxx_fx)
         Quu_reg = Quu + reg * jnp.eye(Quu.shape[0], dtype=Quu.dtype)
         # One joint SPD solve for [k | K]; unrolled Cholesky (see spd_solve).
         sol = -spd_solve(
@@ -94,11 +100,11 @@ def backward(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
         # form (Qx + K'Quu kff + K'Qu + Qux'kff) collapse exactly to
         # Qux' kff (resp. Qux' K) — one tiny matmul instead of three. All
         # solver backends use the same form (equivalence-tested).
-        Vx_new = Qx + Qux.T @ kff
-        Vxx_new = Qxx + Qux.T @ K
+        Vx_new = Qx + _mm(Qux.T, kff)
+        Vxx_new = Qxx + _mm(Qux.T, K)
         Vxx_new = 0.5 * (Vxx_new + Vxx_new.T)
-        dv1 = dv1 + kff @ Qu
-        dv2 = dv2 + 0.5 * kff @ Quu @ kff
+        dv1 = dv1 + _mm(kff, Qu)
+        dv2 = dv2 + 0.5 * _mm(_mm(kff, Quu), kff)
         return (Vx_new, Vxx_new, dv1, dv2), (K, kff)
 
     init = (vx, vxx, jnp.zeros((), vx.dtype), jnp.zeros((), vx.dtype))
@@ -162,11 +168,12 @@ def backward_assoc(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
     luu_inv_lu = spd_solve(luu, lu[..., None])[..., 0]          # (H, c)
     luu_inv_lux = spd_solve(luu, lux)                           # (H, c, n)
     luu_inv_fuT = spd_solve(luu, jnp.swapaxes(fu, -1, -2))      # (H, c, n)
-    A = fx - fu @ luu_inv_lux
-    b = -(fu @ luu_inv_lu[..., None])[..., 0]
-    C = fu @ luu_inv_fuT
-    eta = -(lx - jnp.einsum("tcn,tc->tn", luu_inv_lux, lu))
-    J = lxx - jnp.swapaxes(lux, -1, -2) @ luu_inv_lux
+    A = fx - _mm(fu, luu_inv_lux)
+    b = -_mm(fu, luu_inv_lu[..., None])[..., 0]
+    C = _mm(fu, luu_inv_fuT)
+    eta = -(lx - jnp.einsum("tcn,tc->tn", luu_inv_lux, lu,
+                             precision=_HIGHEST))
+    J = lxx - _mm(jnp.swapaxes(lux, -1, -2), luu_inv_lux)
 
     zeros_m = jnp.zeros((1, n, n), fx.dtype)
     zeros_v = jnp.zeros((1, n), fx.dtype)
@@ -187,25 +194,25 @@ def backward_assoc(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
         """
         A_i, b_i, C_i, eta_i, J_i = ei
         A_j, b_j, C_j, eta_j, J_j = ej
-        M = eye_n + C_i @ J_j                     # (..., n, n)
+        M = eye_n + _mm(C_i, J_j)                     # (..., n, n)
         rhs1 = jnp.concatenate(
-            [A_i, (b_i + (C_i @ eta_j[..., None])[..., 0])[..., None], C_i],
+            [A_i, (b_i + _mm(C_i, eta_j[..., None])[..., 0])[..., None], C_i],
             axis=-1)
         X1 = jnp.linalg.solve(M, rhs1)            # E @ [A_i | b~ | C_i]
         rhs2 = jnp.concatenate(
-            [(eta_j - (J_j @ b_i[..., None])[..., 0])[..., None],
-             J_j @ A_i], axis=-1)
+            [(eta_j - _mm(J_j, b_i[..., None])[..., 0])[..., None],
+             _mm(J_j, A_i)], axis=-1)
         X2 = jnp.linalg.solve(jnp.swapaxes(M, -1, -2), rhs2)  # E' @ [...]
         E_Ai = X1[..., :n]
         E_b = X1[..., n]
         E_Ci = X1[..., n + 1:]
-        A_ij = A_j @ E_Ai
-        b_ij = (A_j @ E_b[..., None])[..., 0] + b_j
-        C_ij = A_j @ E_Ci @ jnp.swapaxes(A_j, -1, -2) + C_j
+        A_ij = _mm(A_j, E_Ai)
+        b_ij = _mm(A_j, E_b[..., None])[..., 0] + b_j
+        C_ij = _mm(_mm(A_j, E_Ci), jnp.swapaxes(A_j, -1, -2)) + C_j
         C_ij = 0.5 * (C_ij + jnp.swapaxes(C_ij, -1, -2))
         AiT = jnp.swapaxes(A_i, -1, -2)
-        eta_ij = eta_i + (AiT @ X2[..., 0:1])[..., 0]
-        J_ij = J_i + AiT @ X2[..., 1:]
+        eta_ij = eta_i + _mm(AiT, X2[..., 0:1])[..., 0]
+        J_ij = J_i + _mm(AiT, X2[..., 1:])
         J_ij = 0.5 * (J_ij + jnp.swapaxes(J_ij, -1, -2))
         return A_ij, b_ij, C_ij, eta_ij, J_ij
 
@@ -217,18 +224,19 @@ def backward_assoc(fx, fu, lx, lu, lxx, luu, lux, vx, vxx,
     Vx_n = vx_all[1:]                    # V_{t+1}, (H, n)
     Vxx_n = Vxx_all[1:]                  # (H, n, n)
     fuT = jnp.swapaxes(fu, -1, -2)
-    Vxx_fu = Vxx_n @ fu
-    Qu = lu + (fuT @ Vx_n[..., None])[..., 0]
-    Quu = luu + fuT @ Vxx_fu
-    Qux = lux + fuT @ (Vxx_n @ fx)
+    Vxx_fu = _mm(Vxx_n, fu)
+    Qu = lu + _mm(fuT, Vx_n[..., None])[..., 0]
+    Quu = luu + _mm(fuT, Vxx_fu)
+    Qux = lux + _mm(fuT, _mm(Vxx_n, fx))
     c = lu.shape[-1]
     Quu_reg = Quu + reg * jnp.eye(c, dtype=Quu.dtype)
     sol = -spd_solve(Quu_reg, jnp.concatenate([Qu[..., None], Qux],
                                               axis=-1))
     kff = sol[..., 0]
     K = sol[..., 1:]
-    dv1 = jnp.einsum("tc,tc->", kff, Qu)
-    dv2 = 0.5 * jnp.einsum("tc,tcd,td->", kff, Quu, kff)
+    dv1 = jnp.einsum("tc,tc->", kff, Qu, precision=_HIGHEST)
+    dv2 = 0.5 * jnp.einsum("tc,tcd,td->", kff, Quu, kff,
+                           precision=_HIGHEST)
     return Gains(K=K, k=kff, dV=jnp.stack([dv1, dv2]))
 
 
@@ -238,7 +246,7 @@ def forward(step_fn, p0, ps_nom, us_nom, gains: Gains, alpha):
 
     def body(p, inp):
         p_nom, u_nom, K, kff = inp
-        u = u_nom + alpha * kff + K @ (p - p_nom)
+        u = u_nom + alpha * kff + _mm(K, p - p_nom)
         nxt = step_fn(p, u)
         return nxt, (nxt, u)
 

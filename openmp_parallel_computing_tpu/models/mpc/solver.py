@@ -1,9 +1,9 @@
 """The visual-servo MPC engine (flagship model).
 
-Per BASELINE.json: Sobel edge-feature maps from the Pallas perception
-front-end feed stage costs; image-plane feature dynamics are rolled out
-over the horizon; the box-constrained QP is solved by an ADMM loop whose
-inner solve is an iLQR/Riccati sweep; scenario batches fill the chip and
+Per BASELINE.json: Sobel edge-feature maps from the perception front-end
+(``ops.edge_pyramid_base``) feed stage costs; image-plane feature dynamics
+are rolled out over the horizon; the box-constrained QP is solved by an ADMM loop whose
+inner solve is an iLQR/Riccati sweep; scenario batches fill the device and
 shard across the mesh's data axis (``models.mpc.distributed``), with solver
 diagnostics reduced via ``psum``.
 
@@ -19,18 +19,18 @@ Solve structure (all fixed-iteration, jit-compilable, static shapes):
         # u^ = us, or relax*us + (1-relax)*z_prev under over-relaxation
         # (cfg.admm_relax, Boyd §3.4.3 — same semantics in every backend)
 
-Four numerically equivalent backends (docs/DESIGN.md):
-  "sweep" (default)  whole-sweep fused Pallas kernels, batch-in-lanes
-                     (sublane-packed once the batch ~fills a
-                     1024-scenario tile; one-launch unified
-                     backward+forward when scratch fits)
-  "fused"            fused Pallas Riccati backward, XLA elsewhere
+Three numerically equivalent backends (docs/DESIGN.md):
+  "sweep" (default)  batch-last lanes layout: the Riccati backward and the
+                     line-searched forward as ``lax.scan`` programs over
+                     the horizon (``models.mpc.sweep``)
   "reference"        per-scenario vmapped XLA (audit/fallback)
   "assoc"            reference with the log-depth associative-scan
-                     backward (audit; measured slower on v5e)
+                     backward (audit)
 
 The whole perception->solve path compiles into ONE device computation
-(``control_step``): no host round-trip per frame, per the real-time budget.
+(``control_step``). Its one host round trip per solve is the adaptive
+budget's ``lax.cond`` (``_adaptive_extra``), whose predicate the GPU
+copies back to the host before it picks a branch.
 """
 
 from __future__ import annotations
@@ -43,52 +43,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from openmp_parallel_computing_tpu.models.mpc import costs, dynamics, riccati
-from openmp_parallel_computing_tpu.ops.pipeline import edge_pyramid_base
+from openmp_parallel_computing_tpu.models.mpc import (
+    costs,
+    dynamics,
+    riccati,
+    sweep,
+)
+from openmp_parallel_computing_tpu.ops import edge_pyramid_base
 from openmp_parallel_computing_tpu.utils.config import MPCConfig
 
 _ALPHAS = (1.0, 0.5, 0.25)  # backtracking candidates, evaluated in parallel
 
-# Measured per-scenario speed of the sublane-packed (8, 128) tile layout
-# relative to lane-only. History: +20-33% on the pre-structural kernels
-# (results/tpu_v5e/pack_study.json); the structural split-layout rewrite
-# (docs/DESIGN.md §2c) made lane-only FASTER — its wide (m, B) FMAs
-# already fill sublanes, and packing only adds relayout traffic. The
-# honest post-fix A/B (the r2c study re-timed one executable through the
-# jit cache; the table is now part of the jit static key) measured
-# packed:lane-only = 0.99/0.99/0.94 at 1024/4096/8192 exact tile
-# multiples (pack_study_r2h.json), so the chooser now takes lane-only at
-# every batch (lane padding never exceeds packed padding). Packed stays
-# as an equivalence-tested layout behind this table.
-# Partial factors (2/4) were tried and measured SLOWER than lane-only at
-# 256 scenarios (6.43 vs 4.30 ms) — sub-8 blocks still occupy full (8,128)
-# register tiles, and Mosaic only lowers them at all when the batch is a
-# single packed tile — so the choice is binary.
-PACK_SPEED = {1: 1.0, 8: 0.97}
-
-# Nominal-rollout path threshold (padded scenarios): up to this batch the
-# rollout runs as an XLA scan of _dyn_step (4096: +20% headline,
-# headline_r5b.json); above it the zero-gain forward_sweep kernel wins
-# (16384: the scan is 17% slower end-to-end — its per-step (n, Bp)
-# intermediates are HBM-bound where the kernel streams VMEM tiles;
-# dual_budget_r5{b,c}.json). Both paths are the same _dyn_step math
-# (equivalence-tested: tests/test_mpc.py::TestRolloutPaths).
-ROLLOUT_SCAN_MAX_BP = 8192
-
-# The whole-solve one-launch kernel (sweep backend, edge_refresh="solve")
-# is selected per config: MPCConfig.full_solve (part of the jit static
-# key). History: measured perf-NEUTRAL vs the scan of multi_sweep launches
-# at small batch (results/tpu_v5e/full_solve_study.json: 1.52 vs 1.49 ms at
-# 256) — the scan path is already device-resident, so there is no launch
-# overhead to fuse away there; the round-4 A/B re-measures at 4096/16384
-# where the ceiling probe pinned the growing solver-side XLA glue
-# (docs/DESIGN.md §2g).
-
-
 def _to_split(a):
     """Permute the trailing state axis from the public interleaved order
     [x0, y0, x1, y1, ...] to the sweep kernels' split order
-    [x0..x_{m-1}, y0..y_{m-1}] (see sweep_pallas module docstring)."""
+    [x0..x_{m-1}, y0..y_{m-1}] (see the ``models.mpc.sweep`` docstring)."""
     s = a.shape
     return a.reshape(s[:-1] + (-1, 2)).swapaxes(-1, -2).reshape(s)
 
@@ -106,11 +75,10 @@ def _pick_candidates(J, cand, a_axis: int, n_batch_dims: int):
 
     Non-finite candidate costs are pushed to +inf so a NaN rollout can
     never win — the alpha=0 (nominal) candidate is always finite and wins
-    instead, matching the fused/reference backends' strict J < j0 guard.
+    instead, matching the reference backend's strict J < j0 guard.
     Masked ``where`` chain rather than a one-hot contraction:
     ``sum(cand * onehot)`` computes 0.0 * NaN = NaN wherever a LOSING
-    candidate diverged, poisoning the finite winner (the same hazard the
-    multi-sweep kernel's select masks, sweep_pallas._select_winner)."""
+    candidate diverged, poisoning the finite winner."""
     J = jnp.where(jnp.isfinite(J), J, jnp.inf)
     Jmin = jnp.min(J, axis=0)                       # (*bshape,)
     cand = jnp.moveaxis(cand, a_axis, 0)
@@ -137,44 +105,6 @@ def _shift_tail_zero(a, axis=0):
         jax.lax.slice_in_dim(a, 1, a.shape[axis], axis=axis), pad)
 
 
-def sweep_vmem_estimates(h: int, n: int, cdim: int, A: int,
-                         tile: int) -> dict[str, int]:
-    """Per-grid-tile VMEM bytes of the one-launch sweep kernels — the
-    admission guards for ``unified_sweep`` / ``multi_sweep`` /
-    ``full_solve``.
-
-    Hand-maintained mirrors of the kernels' ``scratch_shapes`` (plus, for
-    "multi", its VMEM-resident whole-array output blocks); a config the
-    guard admits that Mosaic cannot fit is a compile-time failure on real
-    chips, so tests/test_sweep_paths.py cross-checks these against the
-    actual scratch_shapes the kernels request.
-
-    - "unified": Vx(n) + Vxx(n²) + gains K(h·c·n) + k(h·c) +
-      candidate states(A·n) + running costs(A).
-    - "multi": unified + stored candidates ((A-1)·h·(n+c)) + the nominal
-      trajectory/controls held as whole VMEM output blocks ((h+1)·n + h·c).
-    - "full": multi + feasible-rollout state (n) + ADMM z/y (2·h·c); the
-      nominal lives in scratch instead of output blocks (same size).
-    """
-    gains = (h * cdim * (n + 1) + n * n + n + A * (n + 1)) * tile * 4
-    multi = gains + ((h + 1) * n + h * cdim
-                     + (A - 1) * h * (n + cdim)) * tile * 4
-    full = multi + (n + 2 * h * cdim) * tile * 4
-    return {"unified": gains, "multi": multi, "full": full}
-
-
-def _choose_pack(B: int) -> int:
-    """Sublane factor (1 = lane-only) minimizing padded work / measured
-    layout speed for a batch of B scenarios."""
-    from openmp_parallel_computing_tpu.models.mpc import sweep_pallas as sp
-
-    def cost(s):
-        tile = s * sp.LANE
-        return (-(-B // tile) * tile) / PACK_SPEED[s]
-
-    return min(PACK_SPEED, key=cost)
-
-
 class Scenario(NamedTuple):
     """One MPC problem instance (batch these along a leading axis)."""
 
@@ -194,8 +124,7 @@ class Solution(NamedTuple):
     cost: jax.Array      # () final trajectory cost (unaugmented)
     primal_residual: jax.Array  # () max |us - z| over the horizon
     # Final ADMM scaled duals (H, 6) for warm-starting the next solve
-    # (Scenario.y0); None on the full_solve kernel path (duals live and
-    # die in VMEM scratch there).
+    # (Scenario.y0); None for a cold solve (no Scenario.y0 given).
     dual: jax.Array | None = None
 
 
@@ -305,7 +234,8 @@ def _single_admm(pyramid, shape, scen: Scenario, cfg: MPCConfig,
         def aug_cost_lin(ps_c, us_c):
             quad = riccati.trajectory_cost(stage_q, terminal_q, ps_c, us_c)
             edge = cfg.q_edge * jnp.sum(
-                e_ref + jnp.einsum("kn,kn->k", g_ref, ps_c - ps))
+                e_ref + jnp.einsum("kn,kn->k", g_ref, ps_c - ps,
+                                   precision=jax.lax.Precision.HIGHEST))
             admm = 0.5 * rho * jnp.sum((us_c - z + y) ** 2)
             return quad + edge + admm
 
@@ -323,8 +253,7 @@ def _single_admm(pyramid, shape, scen: Scenario, cfg: MPCConfig,
     us0 = scen.us0
     # edge_refresh="solve": one linearization at the warm-start trajectory
     # shared by the whole solve (warm-started real-time operation keeps the
-    # trajectory near the sampling point; quality measured in
-    # results/tpu_v5e/edge_refresh_study.json).
+    # trajectory near the sampling point).
     eg_solve = sample_edge(us0) if cfg.edge_refresh == "solve" else None
 
     def admm_body(carry, _):
@@ -422,138 +351,18 @@ def _solve_batch_ref(pyramid, shape, scen: Scenario, cfg: MPCConfig,
     return vb(fin)(scen, carry)
 
 
-def _solve_batch_fused(pyramid, shape, scen: Scenario,
-                       cfg: MPCConfig) -> Solution:
-    """Explicitly batched solve using the fused Pallas Riccati kernel.
-
-    Same mathematics as ``_solve_single`` under vmap, but the backward
-    sweep runs as ONE Pallas kernel over the whole scenario batch
-    (``riccati_pallas.backward_batched``) instead of H x ~12 small batched
-    XLA ops per sweep — the dominant cost on TPU, where tiny ops pay fixed
-    per-op overhead.
-    """
-    from openmp_parallel_computing_tpu.models.mpc.riccati_pallas import (
-        backward_batched)
-
-    B, h = scen.us0.shape[0], cfg.horizon
-    n = scen.p0.shape[-1]
-    cdim = dynamics.CONTROL_DIM
-    target = scen.target
-    rho, q, r, qe = cfg.rho, cfg.q_track, cfg.r_ctrl, cfg.q_edge
-    rollout_b = jax.vmap(
-        lambda p0, us, d: dynamics.rollout(p0, us, d, cfg.dt))
-    lin_b = jax.vmap(lambda ps, us, d: jax.vmap(
-        lambda p, u: dynamics.linearize_analytic(p, u, d, cfg.dt))(ps, us))
-
-    eye_n = jnp.eye(n, dtype=jnp.float32)
-    eye_c = jnp.eye(cdim, dtype=jnp.float32)
-
-    def quad_cost(ps, us):  # (B,H+1,n),(B,H,c) -> (B,)
-        track = q * jnp.sum((ps - target[:, None]) ** 2, axis=(1, 2))
-        ctrl = r * jnp.sum(us ** 2, axis=(1, 2))
-        return track + ctrl
-
-    def sample_edge(us):
-        ps_s = rollout_b(scen.p0, us, scen.depth)
-        if qe:
-            return _edge_vg_batch(pyramid, ps_s, shape)
-        return jnp.zeros(ps_s.shape[:2], ps_s.dtype), jnp.zeros_like(ps_s)
-
-    def ilqr_once(us, z, y, eg=None):
-        ps = rollout_b(scen.p0, us, scen.depth)
-        fx, fu = lin_b(ps[:, :-1], us, scen.depth)
-        e_ref, g_ref = eg if eg is not None else sample_edge(us)
-        lx = 2.0 * q * (ps[:, :-1] - target[:, None]) + qe * g_ref[:, :-1]
-        lu = 2.0 * r * us + rho * (us - z + y)
-        lxx = jnp.broadcast_to(2.0 * q * eye_n, (B, h, n, n))
-        luu = jnp.broadcast_to((2.0 * r + rho) * eye_c, (B, h, cdim, cdim))
-        lux = jnp.zeros((B, h, cdim, n), jnp.float32)
-        vx = 2.0 * q * (ps[:, -1] - target) + qe * g_ref[:, -1]
-        vxx = jnp.broadcast_to(2.0 * q * eye_n, (B, n, n))
-        K, kff = backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx)
-
-        def aug_cost_lin(ps_c, us_c):
-            edge = qe * (jnp.sum(e_ref, axis=1)
-                         + jnp.einsum("bkn,bkn->b", g_ref, ps_c - ps))
-            admm = 0.5 * rho * jnp.sum((us_c - z + y) ** 2, axis=(1, 2))
-            return quad_cost(ps_c, us_c) + edge + admm
-
-        def fwd(alpha):
-            def one(p0, ps_n, us_n, Kb, kb, d):
-                gains = riccati.Gains(K=Kb, k=kb,
-                                      dV=jnp.zeros(2, jnp.float32))
-                return riccati.forward(
-                    lambda p, u: dynamics.step(p, u, d, cfg.dt),
-                    p0, ps_n, us_n, gains, alpha)
-            ps_a, us_a = jax.vmap(one)(scen.p0, ps, us, K, kff, scen.depth)
-            return ps_a, us_a, aug_cost_lin(ps_a, us_a)
-
-        ps_c, us_c, J_c = jax.vmap(fwd)(jnp.asarray(_ALPHAS))  # (A,B,...)
-        j0 = aug_cost_lin(ps, us)                              # (B,)
-        best = jnp.argmin(J_c, axis=0)                         # (B,)
-        us_best = jnp.take_along_axis(
-            us_c, best[None, :, None, None], axis=0)[0]
-        improved = jnp.min(J_c, axis=0) < j0
-        return jnp.where(improved[:, None, None], us_best, us)
-
-    us0 = scen.us0
-    eg_solve = sample_edge(us0) if cfg.edge_refresh == "solve" else None
-
-    def admm_body(carry, _):
-        us, z, y = carry
-        eg = (sample_edge(us) if cfg.edge_refresh == "admm"
-              else eg_solve)
-        us = jax.lax.fori_loop(
-            0, cfg.ilqr_iters, lambda _, u: ilqr_once(u, z, y, eg), us)
-        # Over-relaxation (off at 1.0; see _solve_single.admm_body).
-        uh = (us if cfg.admm_relax == 1.0
-              else cfg.admm_relax * us + (1.0 - cfg.admm_relax) * z)
-        z = jnp.clip(uh + y, -cfg.u_limit, cfg.u_limit)
-        y = y + uh - z
-        return (us, z, y), None
-
-    z0 = jnp.clip(us0, -cfg.u_limit, cfg.u_limit)
-    y0 = scen.y0 if scen.y0 is not None else jnp.zeros_like(us0)
-    (us, z, y), _ = jax.lax.scan(admm_body, (us0, z0, y0), None,
-                                 length=cfg.admm_iters)
-    if cfg.admm_iters_extra:
-        (us, z, y) = _adaptive_extra(
-            (us, z, y), us, z, cfg,
-            lambda c: jax.lax.scan(admm_body, c, None,
-                                   length=cfg.admm_iters_extra)[0])
-
-    ps = rollout_b(scen.p0, z, scen.depth)
-    if qe:
-        e_fin = _edge_val_batch(pyramid, ps, shape)
-        edge_cost_total = qe * jnp.sum(e_fin, axis=1)
-    else:
-        edge_cost_total = jnp.zeros(B, jnp.float32)
-    return Solution(
-        us=z,
-        ps=ps,
-        cost=quad_cost(ps, z) + edge_cost_total,
-        primal_residual=jnp.max(jnp.abs(us - z), axis=(1, 2)),
-        dual=y if scen.y0 is not None else None,
-    )
-
-
 class _SweepLanes:
     """Lanes-layout machinery for the sweep backend, built once per trace.
 
-    Holds the batch-layout choice (lane-only or sublane-packed) with the
-    ``lanes``/``unlanes`` converters, and exposes the whole ADMM+iLQR
-    solve as :meth:`solve` operating PURELY in lanes layout — so callers
-    that live in lanes land (``receding_horizon``'s scan carry) never
-    pay the (B, K, n) transposes per step. ``_solve_batch_sweep`` is the
-    thin interleaved-API wrapper. The round-3 ceiling study measured
-    those transposes as the growing glue cost at large batches
-    (docs/DESIGN.md §2g)."""
+    Holds the ``lanes``/``unlanes`` converters between the public
+    (B, ...) layout and the batch-last layout of ``models.mpc.sweep``, and
+    exposes the whole ADMM+iLQR solve as :meth:`solve` operating PURELY in
+    lanes layout — so callers that live in lanes land
+    (``receding_horizon``'s scan carry) never pay the (B, K, n) transposes
+    per step. ``_solve_batch_sweep`` is the thin interleaved-API
+    wrapper."""
 
     def __init__(self, pyramid, shape, cfg: MPCConfig, B: int):
-        from openmp_parallel_computing_tpu.models.mpc import (
-            sweep_pallas as sp)
-
-        self.sp = sp
         self.pyramid = pyramid
         self.shape = shape
         self.cfg = cfg
@@ -567,68 +376,33 @@ class _SweepLanes:
         # (None = f32, bit-identical; see MPCConfig.sampler_dtype).
         self.sampler_dt = (jnp.bfloat16
                            if cfg.sampler_dtype == "bfloat16" else None)
-        # Layout choice: sublane-packed (s, 128) tiles vs lane-only; pick
-        # the factor minimizing padded-work / measured speed.
-        pack = _choose_pack(B)
-        tile = pack * sp.LANE
-        self.Bp = -(-B // tile) * tile
-        self.bshape = ((self.Bp // sp.LANE, sp.LANE) if pack > 1
-                       else (self.Bp,))
-        self.pack = 0 if pack == 1 else pack
         self.kw = dict(m=self.m, q=cfg.q_track, r=cfg.r_ctrl, rho=cfg.rho,
-                       qe=self.qe, dt=cfg.dt, pack=self.pack)
-        # One-launch kernel admission: use each fused kernel whenever its
-        # per-grid-TILE VMEM footprint fits (1024 scenarios packed, 128
-        # unpacked — NOT per batch). Estimates in ``sweep_vmem_estimates``,
-        # cross-checked against the kernels' actual scratch_shapes by
-        # tests/test_sweep_paths.py::TestScratchEstimates.
-        A = len(sp.ALPHAS)
-        est = sweep_vmem_estimates(self.h, self.n, self.cdim, A, tile)
-        self.use_unified = est["unified"] < 10 * 1024 * 1024
-        self.use_multi = (cfg.edge_refresh in ("admm", "solve")
-                          and est["multi"] < 10 * 1024 * 1024)
-        self.use_full = (cfg.full_solve and cfg.edge_refresh == "solve"
-                         and est["full"] < 10 * 1024 * 1024)
-        if cfg.full_solve and cfg.admm_iters_extra:
-            raise ValueError(
-                "admm_iters_extra needs the scan path (the adaptive "
-                "continuation wraps the ADMM scan in a lax.cond); "
-                "full_solve runs a fixed budget inside one kernel — "
-                "unset one of them")
+                       qe=self.qe, dt=cfg.dt)
 
     # -- layout ------------------------------------------------------------
 
-    def lanes(self, a, ndim):
-        perm = tuple(range(1, ndim)) + (0,)
-        a = jnp.transpose(a, perm)
-        a = jnp.pad(a, [(0, 0)] * (ndim - 1) + [(0, self.Bp - self.B)])
-        return a.reshape(a.shape[:-1] + self.bshape)
+    @staticmethod
+    def lanes(a, ndim):
+        """(B, **lead) -> (**lead, B)."""
+        return jnp.transpose(a, tuple(range(1, ndim)) + (0,))
 
-    def unlanes(self, a_l, lead_dims):
-        """(**lead, *bshape) -> (B, **lead)."""
-        a = a_l.reshape(a_l.shape[:lead_dims] + (self.Bp,))
-        perm = (lead_dims,) + tuple(range(lead_dims))
-        return jnp.transpose(a, perm)[:self.B]
+    @staticmethod
+    def unlanes(a_l, lead_dims):
+        """(**lead, B) -> (B, **lead)."""
+        return jnp.transpose(a_l, (lead_dims,) + tuple(range(lead_dims)))
 
     def lanes_scenario(self, scen: Scenario):
         """Scenario -> (p0_l, target_l, izd_l, us_l), split order."""
         p0_l = self.lanes(_to_split(scen.p0), 2)
         target_l = self.lanes(_to_split(scen.target), 2)
-        izd = 1.0 / scen.depth             # padding lanes get depth 1.0
-        izd = jnp.pad(jnp.transpose(izd, (1, 0)),
-                      ((0, 0), (0, self.Bp - self.B)), constant_values=1.0)
-        izd_l = izd.reshape(izd.shape[:-1] + self.bshape)
-        us_l = self.lanes(scen.us0, 3)     # (h, c, *bshape)
+        izd_l = self.lanes(1.0 / scen.depth, 2)
+        us_l = self.lanes(scen.us0, 3)     # (h, c, B)
         return p0_l, target_l, izd_l, us_l
-
-    def _vec(self, a_l):
-        """Per-lane reduction result (*bshape) -> (B,)."""
-        return a_l.reshape(self.Bp)[:self.B]
 
     # -- edge term ----------------------------------------------------------
 
     def edge_vals(self, ps_l):
-        """Pyramid edge cost at a lanes-land trajectory -> (h+1, *bshape),
+        """Pyramid edge cost at a lanes-land trajectory -> (h+1, B),
         sampled straight off the split layout (no transposes). Batched
         pyramids (serving multi-frame, single-digit batches) go through
         the interleaved sampler and back."""
@@ -636,16 +410,7 @@ class _SweepLanes:
         if _pyramid_batched(self.pyramid):
             ps_b = _from_split(self.unlanes(ps_l, 2))       # (B, h+1, n)
             v = _edge_val_batch(self.pyramid, ps_b, self.shape)  # (B, h+1)
-            v_l = jnp.pad(jnp.transpose(v, (1, 0)),
-                          ((0, 0), (0, self.Bp - self.B)))
-            return v_l.reshape(v_l.shape[:-1] + self.bshape)
-        if self.cfg.edge_sampler == "pallas":
-            from openmp_parallel_computing_tpu.models.mpc import (
-                sampler_pallas)
-
-            return sampler_pallas.edge_vals_lanes(
-                self.pyramid, ps_l[:, :m], ps_l[:, m:], *self.shape,
-                scales=costs.PYRAMID_SCALES)
+            return jnp.transpose(v, (1, 0))
         return costs.edge_cost_pyramid_xy(
             self.pyramid, ps_l[:, :m], ps_l[:, m:], *self.shape,
             dtype=self.sampler_dt)
@@ -654,34 +419,15 @@ class _SweepLanes:
         """d(edge cost summed over the trajectory)/d ps_l, lanes layout.
 
         Lanes are independent scenarios, so grad-of-sum gives per-lane
-        gradients; padding lanes get real (finite, discarded) gradients
-        where the old unlanes round trip zero-padded them. Batched
-        pyramids (serving multi-frame) fall back to the interleaved
-        sampler — micro-batches are single digits, layout cost is nil.
-
-        edge_sampler="pallas" computes the gradient analytically inside
-        the VMEM-resident sampler kernel (one value+grad launch) instead
-        of autodiffing the XLA einsums — same values (tested), none of
-        the HBM-materialized weight traffic (docs/DESIGN.md §2g)."""
+        gradients. Batched pyramids (serving multi-frame) fall back to the
+        interleaved sampler — micro-batches are single digits, layout
+        cost is nil."""
         if not self.qe:
-            return jnp.zeros((self.h + 1, self.n) + self.bshape,
-                             jnp.float32)
+            return jnp.zeros((self.h + 1, self.n, self.B), jnp.float32)
         if _pyramid_batched(self.pyramid):
             ps_b = _from_split(self.unlanes(ps_l, 2))      # (B, h+1, n)
             _, g = _edge_vg_batch(self.pyramid, ps_b, self.shape)
-            g = _to_split(g)
-            g_l = jnp.pad(jnp.transpose(g, (1, 2, 0)),
-                          ((0, 0), (0, 0), (0, self.Bp - self.B)))
-            return g_l.reshape(g_l.shape[:-1] + self.bshape)
-        if self.cfg.edge_sampler == "pallas":
-            from openmp_parallel_computing_tpu.models.mpc import (
-                sampler_pallas)
-
-            m = self.m
-            _, gx, gy = sampler_pallas.edge_vg_lanes(
-                self.pyramid, ps_l[:, :m], ps_l[:, m:], *self.shape,
-                scales=costs.PYRAMID_SCALES)
-            return jnp.concatenate([gx, gy], axis=1)
+            return jnp.transpose(_to_split(g), (1, 2, 0))
         if self.cfg.edge_sampler == "analytic":
             m = self.m
             _, gx, gy = costs.edge_vg_pyramid_xy(
@@ -695,78 +441,28 @@ class _SweepLanes:
     def solve(self, p0_l, target_l, izd_l, us_l, y0_l=None):
         """Full ADMM+iLQR solve in lanes layout.
 
-        ``y0_l``: optional warm-start scaled duals (h, c, *bshape);
-        None = cold (zeros, bit-identical to the pre-parameter solver).
+        ``y0_l``: optional warm-start scaled duals (h, c, B); None = cold
+        (zeros, bit-identical to the pre-parameter solver).
 
         Returns ``(z_l, ps_final_l, resid_l, y_l)``: the projected
-        feasible controls (h, c, *bshape), their true rollout
-        (h+1, n, *bshape), the per-lane primal residual (*bshape), and
-        the final scaled duals (h, c, *bshape) for warm-starting the
-        next solve."""
-        sp, cfg, kw = self.sp, self.cfg, self.kw
-        h, n, cdim, bshape = self.h, self.n, self.cdim, self.bshape
+        feasible controls (h, c, B), their true rollout (h+1, n, B), the
+        per-lane primal residual (B,), and the final scaled duals
+        (h, c, B) for warm-starting the next solve."""
+        cfg, kw = self.cfg, self.kw
 
-        def rollout_nominal(us_l, z_l, y_l):
-            """Nominal trajectory of ``us_l`` from ``p0_l``.
+        def rollout(us_l):
+            return sweep.rollout(p0_l, us_l, izd_l, cfg.dt, self.m)
 
-            Two numerically equivalent paths, chosen statically by batch
-            size (Bp is trace-static):
+        def pick(J, cand):
+            return _pick_candidates(J, cand, 1, 1)
 
-            - XLA scan of the kernels' own split-layout ``_dyn_step``
-              (small/medium batches): the zero-gain ``forward_sweep``
-              launch it replaces computes all A line-search candidates
-              plus their costs only to discard them — the r5 16k trace
-              billed the two nominal rollouts at ~2.5 ms/step, ~4x a
-              rollout's work. Switching moved the 4096 headline
-              1,080,192 -> 1,297,673 solves/s (+20%,
-              results/tpu_v5e/headline_r5{,b}.json).
-            - zero-gain ``forward_sweep`` kernel (large batches): at
-              16384 the scan path measured 17% SLOWER end-to-end
-              (dual_budget_r5b.json 835,632 vs 1,013,276) — the scan's
-              per-step (n, Bp) intermediates live in HBM while the
-              kernel streams VMEM-resident tiles, and at 16k lanes the
-              rollout is bandwidth- not compute-bound. Crossover
-              measured between 8192 and 16384 (rollout A/B rows in
-              dual_budget_r5b.json); the threshold picks scan up to
-              8192 lanes.
-            """
-            if self.Bp <= ROLLOUT_SCAN_MAX_BP:
-                del z_l, y_l   # the rollout never consults ADMM state
-
-                def body(p, u_t):
-                    nxt = sp._dyn_step(p, u_t, izd_l, cfg.dt, self.m)
-                    return nxt, nxt
-                _, tail = jax.lax.scan(body, p0_l, us_l)
-                return jnp.concatenate([p0_l[None], tail], axis=0)
-            ps0 = jnp.zeros((h + 1, n) + bshape, jnp.float32)
-            zeros_g = jnp.zeros((h + 1, n) + bshape, jnp.float32)
-            zero_gains = (
-                jnp.zeros((h, cdim, n) + bshape, jnp.float32),
-                jnp.zeros((h, cdim) + bshape, jnp.float32))
-            ps_c, _, _ = sp.forward_sweep(p0_l, ps0, us_l, *zero_gains,
-                                          z_l, y_l, zeros_g, target_l,
-                                          izd_l, **kw)
-            return ps_c[:, 0]                       # (h+1, n, *bshape)
-
-        def pick(J, cand, a_axis):
-            return _pick_candidates(J, cand, a_axis, len(bshape))
-
-        def ilqr_once(carry, g_fix=None):
-            us_l, ps_l, z_l, y_l = carry
-            g_l = g_fix if g_fix is not None else self.edge_grads(ps_l)
-            if self.use_unified:
-                ps_c, us_c, J = sp.unified_sweep(p0_l, ps_l, us_l, z_l,
-                                                 y_l, g_l, target_l,
-                                                 izd_l, **kw)
-            else:
-                K, kff = sp.backward_sweep(ps_l, us_l, z_l, y_l, g_l,
-                                           target_l, izd_l, **kw)
-                ps_c, us_c, J = sp.forward_sweep(p0_l, ps_l, us_l, K, kff,
-                                                 z_l, y_l, g_l, target_l,
-                                                 izd_l, **kw)
-            us_new = pick(J, us_c, 1)               # (h, c, *bshape)
-            ps_new = pick(J, ps_c, 1)               # (h+1, n, *bshape)
-            return us_new, ps_new
+        def ilqr_once(us_l, ps_l, z_l, y_l, g_l):
+            K, kff = sweep.backward_sweep(ps_l, us_l, z_l, y_l, g_l,
+                                          target_l, izd_l, **kw)
+            ps_c, us_c, J = sweep.forward_sweep(p0_l, ps_l, us_l, K, kff,
+                                                z_l, y_l, g_l, target_l,
+                                                izd_l, **kw)
+            return pick(J, us_c), pick(J, ps_c)     # (h, c, B), (h+1, n, B)
 
         def admm_body(carry, _):
             us_l, ps_l, z_l, y_l, g_solve = carry
@@ -774,23 +470,17 @@ class _SweepLanes:
             # share it across the iLQR sweeps (constant shift in the
             # line-search comparisons — argmin unaffected; see
             # config.MPCConfig). "solve": the warm-start linearization
-            # rides the carry.
+            # rides the carry. "ilqr": re-sample before every sweep.
             g_fix = (self.edge_grads(ps_l) if cfg.edge_refresh == "admm"
                      else g_solve)
 
-            if self.use_multi:
-                # All iLQR sweeps of this ADMM iteration in ONE kernel
-                # launch (equivalence-tested against the per-sweep path).
-                ps_l, us_l = sp.multi_sweep(p0_l, ps_l, us_l, z_l, y_l,
-                                            g_fix, target_l, izd_l,
-                                            sweeps=cfg.ilqr_iters, **kw)
-            else:
-                def inner(_, c2):
-                    us2, ps2 = ilqr_once((c2[0], c2[1], z_l, y_l), g_fix)
-                    return (us2, ps2)
+            def inner(_, c2):
+                us2, ps2 = c2
+                g = g_fix if g_fix is not None else self.edge_grads(ps2)
+                return ilqr_once(us2, ps2, z_l, y_l, g)
 
-                us_l, ps_l = jax.lax.fori_loop(0, cfg.ilqr_iters, inner,
-                                               (us_l, ps_l))
+            us_l, ps_l = jax.lax.fori_loop(0, cfg.ilqr_iters, inner,
+                                           (us_l, ps_l))
             # Over-relaxation (off at 1.0; see _solve_single.admm_body).
             uh_l = (us_l if cfg.admm_relax == 1.0
                     else cfg.admm_relax * us_l
@@ -801,44 +491,24 @@ class _SweepLanes:
 
         z0 = jnp.clip(us_l, -cfg.u_limit, cfg.u_limit)
         y0 = y0_l if y0_l is not None else jnp.zeros_like(us_l)
-        ps_l = rollout_nominal(us_l, z0, y0)
+        ps_l = rollout(us_l)
         g_solve0 = (self.edge_grads(ps_l)
                     if cfg.edge_refresh == "solve" else None)
-        if self.use_full:
-            if y0_l is not None:
-                raise ValueError(
-                    "full_solve initializes its ADMM duals in VMEM "
-                    "scratch and cannot accept a dual warm start. An "
-                    "explicit Scenario.y0 cannot be honored with "
-                    "MPCConfig.full_solve=True — unset one of them. "
-                    "(The receding-horizon loops skip the "
-                    "MPCConfig.dual_warm_start carry automatically "
-                    "under full_solve.)")
-            # Entire ADMM loop + final feasible rollout in ONE kernel
-            # launch (equivalence-tested against the scan path below).
-            ps_final_l, z_l, us_l = sp.full_solve(
-                p0_l, ps_l, us_l, g_solve0, target_l, izd_l,
-                sweeps=cfg.ilqr_iters, admm_iters=cfg.admm_iters,
-                u_limit=cfg.u_limit, relax=cfg.admm_relax, **kw)
-            y_l = None
-        else:
-            carry, _ = jax.lax.scan(
-                admm_body, (us_l, ps_l, z0, y0, g_solve0), None,
-                length=cfg.admm_iters)
-            if cfg.admm_iters_extra:
-                # Adaptive budget: the continuation scan runs only when
-                # the batch-max residual says the base budget has not
-                # settled (padding lanes solve the all-zeros dummy
-                # problem, residual 0 — they cannot trip the gate).
-                carry = _adaptive_extra(
-                    carry, carry[0], carry[2], cfg,
-                    lambda c: jax.lax.scan(
-                        admm_body, c, None,
-                        length=cfg.admm_iters_extra)[0])
-            us_l, ps_l, z_l, y_l, _ = carry
+        carry, _ = jax.lax.scan(
+            admm_body, (us_l, ps_l, z0, y0, g_solve0), None,
+            length=cfg.admm_iters)
+        if cfg.admm_iters_extra:
+            # Adaptive budget: the continuation scan runs only when the
+            # batch-max residual says the base budget has not settled.
+            carry = _adaptive_extra(
+                carry, carry[0], carry[2], cfg,
+                lambda c: jax.lax.scan(
+                    admm_body, c, None,
+                    length=cfg.admm_iters_extra)[0])
+        us_l, ps_l, z_l, y_l, _ = carry
 
-            # Final feasible controls + their true trajectory/cost.
-            ps_final_l = rollout_nominal(z_l, z_l, y_l)
+        # Final feasible controls + their true trajectory/cost.
+        ps_final_l = rollout(z_l)
         resid_l = jnp.max(jnp.abs(us_l - z_l), axis=(0, 1))
         return z_l, ps_final_l, resid_l, y_l
 
@@ -852,15 +522,15 @@ class _SweepLanes:
             edge_total = self.qe * jnp.sum(self.edge_vals(ps_final_l),
                                            axis=0)
         else:
-            edge_total = jnp.zeros(self.bshape, jnp.float32)
-        return self._vec(track + ctrl + edge_total)
+            edge_total = jnp.zeros((self.B,), jnp.float32)
+        return track + ctrl + edge_total
 
 
 def _solve_batch_sweep(pyramid, shape, scen: Scenario,
                        cfg: MPCConfig) -> Solution:
-    """Whole-sweep fused solve: two Pallas launches per iLQR sweep
-    (``sweep_pallas``), solver state kept in lanes layout across the whole
-    ADMM loop. Same math as the other backends (equivalence-tested)."""
+    """Lanes-layout solve (``models.mpc.sweep``), solver state kept batch-last
+    across the whole ADMM loop. Same math as the other backends
+    (equivalence-tested)."""
     B = scen.us0.shape[0]
     sw = _SweepLanes(pyramid, shape, cfg, B)
     p0_l, target_l, izd_l, us_l = sw.lanes_scenario(scen)
@@ -870,14 +540,12 @@ def _solve_batch_sweep(pyramid, shape, scen: Scenario,
     # Contract: duals out iff duals in (Scenario.y0). Cold solves skip
     # the unlanes transpose and the extra jit output entirely, so the
     # serving/dispatch paths pay nothing for the warm-start feature.
-    dual = (sw.unlanes(y_l, 2)
-            if y0_l is not None and y_l is not None else None)
     return Solution(
         us=sw.unlanes(z_l, 2),
         ps=_from_split(sw.unlanes(ps_final_l, 2)),
         cost=sw.final_cost(z_l, ps_final_l, target_l),
-        primal_residual=sw._vec(resid_l),
-        dual=dual,
+        primal_residual=resid_l,
+        dual=sw.unlanes(y_l, 2) if y0_l is not None else None,
     )
 
 
@@ -920,8 +588,6 @@ class VisualServoMPC:
         leading per-scenario batch dim). Called inside a jit."""
         if self.cfg.backend == "sweep":
             return _solve_batch_sweep(pyramid, shape, scen, self.cfg)
-        if self.cfg.backend == "fused":
-            return _solve_batch_fused(pyramid, shape, scen, self.cfg)
         bwd = (riccati.backward_assoc if self.cfg.backend == "assoc"
                else riccati.backward)
         return _solve_batch_ref(pyramid, shape, scen, self.cfg, bwd)
@@ -962,10 +628,9 @@ class VisualServoMPC:
     def control_step(self, frame: jax.Array, scen: Scenario):
         """Full per-frame control path in one jitted computation.
 
-        frame: planar (C, H, W) u8 camera image. Runs the fused
-        perception -> pyramid front-end (grayscale -> Sobel -> pooling in
-        one Pallas kernel, never materializing the full-res edge map:
-        ``ops.pipeline.edge_pyramid_base``), then the batched solve;
+        frame: planar (C, H, W) u8 camera image. Runs the perception ->
+        pyramid front-end (grayscale -> Sobel -> block pooling,
+        ``ops.edge_pyramid_base``), then the batched solve;
         returns (u0 batch, Solution batch). No host round-trips.
         """
         pyramid = costs.build_cost_pyramid_from_frame(frame)
@@ -977,12 +642,8 @@ class VisualServoMPC:
         the receding-horizon carry: seed cold zeros when the caller did
         not provide ``Scenario.y0`` (the scan carry must be
         structure-stable). A caller-provided y0 is carried regardless of
-        the flag — it is data, not configuration. Under
-        ``cfg.full_solve`` the carry is skipped entirely (that kernel
-        initializes its duals in VMEM scratch; an EXPLICIT y0 there is
-        rejected by the solve)."""
-        if (self.cfg.dual_warm_start and scen.y0 is None
-                and not self.cfg.full_solve):
+        the flag — it is data, not configuration."""
+        if self.cfg.dual_warm_start and scen.y0 is None:
             return scen._replace(y0=jnp.zeros_like(scen.us0))
         return scen
 
@@ -1011,7 +672,7 @@ class VisualServoMPC:
         next solve. The camera frame is FIXED for the window, so the
         perception front-end and cost pyramid run ONCE per window and stay
         device-resident — this is the solver-only throughput ceiling, the
-        idiomatic TPU shape for offline policy evaluation and solver
+        shape for offline policy evaluation and solver
         tuning sweeps. A live camera loop pays perception every step: for
         perception-honest throughput (and the headline bench) use
         :meth:`receding_horizon_frames`, which rebuilds the pyramid from a
@@ -1041,31 +702,18 @@ class VisualServoMPC:
                         n_steps: int):
         """Sweep-backend receding-horizon loop with a LANES-RESIDENT scan
         carry: the scenario state (p0, warm-start plan) stays in the
-        kernels' split/lanes layout across control steps, so the per-step
-        (B, K, n) transposes of the interleaved API — measured as the
-        growing glue cost at large batches (docs/DESIGN.md §2g) — never
-        run inside the loop. The true-dynamics update reuses the kernels'
-        own split-layout ``_dyn_step`` (bit-identical model); outputs are
-        stacked in lanes and converted ONCE after the scan.
+        sweep's split/lanes layout across control steps, so the per-step
+        (B, K, n) transposes of the interleaved API never run inside the
+        loop. The true-dynamics update reuses the sweep's own split-layout
+        ``_dyn_step`` (bit-identical model); outputs are stacked in lanes
+        and converted ONCE after the scan.
 
         ``pyramid_at(step_index)`` returns the cost pyramid for a step —
         a constant closure for the fixed-frame loop, a per-step frame
         slice + rebuild for the frame-ring loop."""
-        from openmp_parallel_computing_tpu.models.mpc import (
-            sweep_pallas as sp)
-
         cfg = self.cfg
         B = scen.us0.shape[0]
-        dt = cfg.dt
-        # The full_solve kernel owns its duals in VMEM scratch: skip the
-        # config-driven carry there, and reject an EXPLICIT Scenario.y0
-        # (silently dropping caller data would be worse than failing).
-        if cfg.full_solve and scen.y0 is not None:
-            raise ValueError(
-                "full_solve cannot honor Scenario.y0 (its ADMM duals "
-                "live in VMEM scratch) — unset one of them")
-        dual_carry = ((cfg.dual_warm_start or scen.y0 is not None)
-                      and not cfg.full_solve)
+        dual_carry = cfg.dual_warm_start or scen.y0 is not None
         # Layout-only context (the pyramid is per-step inside the scan).
         sw0 = _SweepLanes(None, shape, cfg, B)
         p0_l, target_l, izd_l, us_l = sw0.lanes_scenario(scen)
@@ -1082,8 +730,8 @@ class VisualServoMPC:
             z_l, ps_final_l, _, y_out = sw.solve(p0_l, target_l, izd_l,
                                                  us_l, y_l)
             cost = sw.final_cost(z_l, ps_final_l, target_l)
-            u0_l = z_l[0]                           # (c, *bshape)
-            p1_l = sp._dyn_step(p0_l, u0_l, izd_l, dt, sw.m)
+            u0_l = z_l[0]                           # (c, B)
+            p1_l = sweep._dyn_step(p0_l, u0_l, izd_l, cfg.dt, sw.m)
             y_next = (cfg.dual_decay * _shift_tail_zero(y_out, axis=0)
                       if dual_carry else None)
             return ((p1_l, _shift_tail_zero(z_l, axis=0), y_next),
@@ -1093,9 +741,8 @@ class VisualServoMPC:
         (p0_l, us_l, y_l), (u0s_l, cost_seq) = jax.lax.scan(
             body, (p0_l, us_l, y_l), idxs)
         # One layout conversion per WINDOW (not per step): stacked
-        # (T, c, *bshape) -> (T, B, c); scenario back to the public layout.
-        u0s = jnp.transpose(
-            u0s_l.reshape(u0s_l.shape[:2] + (sw0.Bp,)), (0, 2, 1))[:, :B]
+        # (T, c, B) -> (T, B, c); scenario back to the public layout.
+        u0s = jnp.transpose(u0s_l, (0, 2, 1))
         scen_out = scen._replace(
             p0=_from_split(sw0.unlanes(p0_l, 1)),
             us0=sw0.unlanes(us_l, 2),
@@ -1106,8 +753,8 @@ class VisualServoMPC:
     def receding_horizon_frames(self, frames: jax.Array, scen: Scenario,
                                 n_steps: int):
         """Device-resident receding-horizon loop over a RING OF FRAMES:
-        every control step runs the FULL per-frame path — fused Pallas
-        grayscale -> Sobel -> pooled pyramid on that step's camera frame,
+        every control step runs the FULL per-frame path — perception
+        (grayscale -> Sobel -> pooled pyramid on that step's camera frame,
         then the batched solve, the first control applied to the true
         dynamics, and the warm-start shift — all inside one ``lax.scan``
         dispatch.
@@ -1148,15 +795,9 @@ class VisualServoMPC:
         return u0s, cost_seq, scen_out
 
     # jit static self: the key must cover everything the traced program
-    # depends on — the config AND the module-level PACK_SPEED table, whose
-    # entries steer the static sublane-layout choice (_choose_pack) inside
-    # the trace. Hashing the table at call time means a repinned table
-    # (bench.pack_study's layout A/B) retraces instead of silently reusing
-    # the other layout's executable.
+    # depends on, which is the config.
     def _static_key(self):
-        return (dataclasses.astuple(self.cfg),
-                tuple(sorted(PACK_SPEED.items())),
-                ROLLOUT_SCAN_MAX_BP)
+        return dataclasses.astuple(self.cfg)
 
     def __hash__(self):
         return hash(self._static_key())

@@ -21,8 +21,8 @@ from openmp_parallel_computing_tpu import ops, parallel
 class EdgeBatchRunner:
     """Runs the fused edge pipeline over (B, C, H, W) u8 frame batches.
 
-    With a mesh, frames are sharded over the data axis; the Pallas kernel
-    runs per device on its local sub-batch (vmap over frames).
+    With a mesh, frames are sharded over the data axis; the op runs per
+    device on its local sub-batch (vmap over frames).
     """
 
     def __init__(self, mesh: Mesh | None = None, kernel: str = "edge"):

@@ -1,18 +1,17 @@
-"""Pallas TPU kernels + pure-jnp twins for the framework's stencil/reduction ops."""
+"""XLA image ops (``ops.image``) and their plain-jnp references (``xla_ref``)."""
 
 from openmp_parallel_computing_tpu.ops import xla_ref  # noqa: F401
-from openmp_parallel_computing_tpu.ops.conv import conv3x3, gaussian_blur  # noqa: F401
-from openmp_parallel_computing_tpu.ops.grayscale import grayscale  # noqa: F401
-from openmp_parallel_computing_tpu.ops.pipeline import (  # noqa: F401
-    edge_pipeline,
-    edge_pyramid_base,
-)
-from openmp_parallel_computing_tpu.ops.reductions import (  # noqa: F401
+from openmp_parallel_computing_tpu.ops.image import (  # noqa: F401
     channel_mean,
     channel_sum,
+    conv3x3,
+    edge_pipeline,
+    edge_pyramid_base,
+    gaussian_blur,
+    grayscale,
     grayscale_mean_minmax,
+    sobel,
 )
-from openmp_parallel_computing_tpu.ops.sobel import sobel  # noqa: F401
 from openmp_parallel_computing_tpu.ops.xla_ref import (  # noqa: F401
     chw_to_hwc,
     hwc_to_chw,

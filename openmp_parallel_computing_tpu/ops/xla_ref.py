@@ -1,7 +1,8 @@
-"""Pure-jnp (XLA) reference implementations — the "twins" of every Pallas kernel.
+"""Pure-jnp (XLA) reference implementations of the image ops.
 
-These define the numerical contract each Pallas kernel must reproduce, and are
-themselves tested bit-tolerantly against the reference C/OpenMP pipeline
+These define the numerical contract of every op in ``ops.image`` (which
+builds on them), and are themselves tested bit-tolerantly against the
+reference C/OpenMP pipeline
 (golden fixtures in ``tests/golden``). Semantics follow the reference repo:
 
 - grayscale: BT.601 luma, float32 accumulate, C-cast truncation to u8, all
@@ -44,7 +45,7 @@ GBLUR_NORM = 16
 
 
 def hwc_to_chw(img: jax.Array) -> jax.Array:
-    """Interleaved (H, W, C) -> planar (C, H, W) (the TPU-friendly layout)."""
+    """Interleaved (H, W, C) -> planar (C, H, W) (the device layout)."""
     return jnp.transpose(img, (2, 0, 1))
 
 
@@ -70,8 +71,10 @@ def luma(img: jax.Array) -> jax.Array:
     return grayscale(img)[0]
 
 
-def sobel(gray: jax.Array) -> jax.Array:
-    """(H, W) u8 plane -> (H, W) u8 edge magnitude; border rows/cols are 0."""
+def sobel(gray: jax.Array, border: str = "zero") -> jax.Array:
+    """(H, W) u8 plane -> (H, W) u8 edge magnitude; out-of-plane neighbors
+    are 0. ``border="zero"`` zeroes the 1-px border rows/cols; ``"none"``
+    keeps every computed row (for halo-extended shards)."""
     g = gray.astype(jnp.float32)
     gp = jnp.pad(g, 1)
 
@@ -83,25 +86,33 @@ def sobel(gray: jax.Array) -> jax.Array:
           + sh(-1, 1) + 2 * sh(0, 1) + sh(1, 1))
     gy = (sh(-1, -1) + 2 * sh(-1, 0) + sh(-1, 1)
           - sh(1, -1) - 2 * sh(1, 0) - sh(1, 1))
-    # u8 inputs make gx^2+gy^2 <= 2*1020^2 < 2^24: exact in f32.
-    mag = jnp.sqrt(gx * gx + gy * gy)
-    mag = jnp.minimum(jnp.floor(mag), 255.0)
-    h, w = gray.shape
-    row = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
-    interior = (row >= 1) & (row < h - 1) & (col >= 1) & (col < w - 1)
-    return jnp.where(interior, mag, 0.0).astype(jnp.uint8)
+    # u8 inputs make gx^2+gy^2 <= 2*1020^2 < 2^24: exact in f32, as are
+    # the squares below. A device sqrt that is not correctly rounded can
+    # land one below an exact root; the two corrections restore
+    # floor(sqrt(.)) exactly, so every backend gives the same bytes.
+    s = gx * gx + gy * gy
+    mag = jnp.floor(jnp.sqrt(s))
+    mag = jnp.where((mag + 1.0) * (mag + 1.0) <= s, mag + 1.0, mag)
+    mag = jnp.where(mag * mag > s, mag - 1.0, mag)
+    mag = jnp.minimum(mag, 255.0)
+    if border == "zero":
+        h, w = gray.shape
+        row = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
+        col = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
+        interior = (row >= 1) & (row < h - 1) & (col >= 1) & (col < w - 1)
+        mag = jnp.where(interior, mag, 0.0)
+    return mag.astype(jnp.uint8)
 
 
-def edge_pipeline(img: jax.Array) -> jax.Array:
+def edge_pipeline(img: jax.Array, border: str = "zero") -> jax.Array:
     """The reference's 4-stage sobel driver as one fused computation.
 
     grayscale (in-place) -> extract mono plane -> sobel -> broadcast back to
     RGB (``monolithic/src/main_with_sobel.c:51-74``), with the luma plane
     truncated to u8 *before* the stencil, exactly as the staged C pipeline
-    materializes it.
+    materializes it. ``border`` as in :func:`sobel`.
     """
-    e = sobel(luma(img))
+    e = sobel(luma(img), border=border)
     out = jnp.broadcast_to(e[None], (3,) + e.shape)
     if img.shape[0] > 3:
         out = jnp.concatenate([out, img[3:]], axis=0)

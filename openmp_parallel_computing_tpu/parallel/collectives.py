@@ -1,10 +1,10 @@
 """Collective helpers over the device mesh.
 
-TPU-native replacements for the reference's cross-worker aggregation
+Device replacements for the reference's cross-worker aggregation
 patterns: OpenMP reduction clauses (``old/parallel_avg_pixel.c:16``,
 ``old/parallel_to_grayscale.c:12``) become ``psum``/``pmin``/``pmax`` over
 mesh axes; the stencil's row-neighbor access across a spatial shard boundary
-becomes a ``ppermute`` neighbor shift (the ICI halo exchange).
+becomes a ``ppermute`` neighbor shift (the halo exchange).
 """
 
 from __future__ import annotations

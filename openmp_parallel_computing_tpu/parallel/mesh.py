@@ -2,10 +2,11 @@
 
 The reference's parallelism knob is a thread count (``OMP_NUM_THREADS``,
 swept by ``monolithic/scripts/bench_and_plot_monolithic.sh:34-46``). The
-TPU-native replacement is a device mesh: chips on ICI (optionally hosts over
-DCN) arranged into named axes, with shardings — not threads — deciding how
-work spreads. This module owns mesh construction, the chips/mesh-shape knob,
-and multi-host initialization.
+replacement is a device mesh: the host's devices (optionally several hosts)
+arranged into named axes, with shardings — not threads — deciding how work
+spreads. The mesh follows the algorithm: a data axis for scenario batches,
+a model axis for spatial row shards. This module owns mesh construction,
+the mesh-shape knob, and multi-host initialization.
 """
 
 from __future__ import annotations
@@ -68,8 +69,9 @@ def initialize_multihost(coordinator: str | None = None,
                          process_id: int | None = None) -> None:
     """Initialize the multi-host JAX runtime (DCN tier).
 
-    One process per host feeds its local devices; collectives ride ICI
-    within a slice and DCN across hosts. This replaces the reference's
+    One process per host feeds its local devices; collectives ride the
+    host's device interconnect (NVLink) within a host and the network
+    across hosts. This replaces the reference's
     RabbitMQ-worker fan-out (``event-driven/grayscale_service/app.py:92-94``)
     as the multi-machine scaling mechanism. No-op when the environment
     carries no multi-host configuration.

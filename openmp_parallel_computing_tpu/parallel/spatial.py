@@ -1,15 +1,15 @@
 """Spatially sharded stencils: one image split row-wise across the mesh.
 
-This is the direct ICI analogue of the reference's intra-kernel OpenMP
+This is the device analogue of the reference's intra-kernel OpenMP
 parallelism: where ``collapse(2) schedule(static)`` splits the row loop over
 threads sharing one address space (``monolithic/src/sobel.c:10``), here the
-row range is sharded over devices, each device runs the Pallas stencil on its
+row range is sharded over devices, each device runs the stencil on its
 local rows, and the one-row overlap a neighboring thread would have read from
-shared memory becomes a ``ppermute`` halo exchange over ICI
+shared memory becomes a ``ppermute`` halo exchange between devices
 (``parallel.collectives.halo_exchange_rows``).
 
-Used for frames too large for one chip or to cut per-frame latency across a
-slice; for throughput over many frames prefer batch data-parallelism
+Used for frames too large for one device or to cut per-frame latency across
+several; for throughput over many frames prefer batch data-parallelism
 (``models.vision``).
 """
 
@@ -19,8 +19,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from openmp_parallel_computing_tpu.ops.pipeline import edge_pipeline as _edge_pipeline
-from openmp_parallel_computing_tpu.ops.sobel import sobel as _sobel_op
+from openmp_parallel_computing_tpu.ops.image import (
+    edge_pipeline as _edge_pipeline,
+    gaussian_blur as _blur_op,
+    grayscale as _grayscale_op,
+    sobel as _sobel_op,
+)
 from openmp_parallel_computing_tpu.parallel import collectives
 from openmp_parallel_computing_tpu.parallel.mesh import MODEL_AXIS
 
@@ -63,10 +67,8 @@ def sharded_sobel(gray: jax.Array, mesh: Mesh, axis: str = MODEL_AXIS,
         out = _sobel_op(ext, border="none")[1:-1]
         return _border_mask_rows(out, img_h, w, axis, h_local)
 
-    # check_vma=False: pallas_call outputs do not carry varying-mesh-axis
-    # metadata yet, which the default vma check rejects.
     f = jax.shard_map(local, mesh=mesh, in_specs=P(axis, None),
-                      out_specs=P(axis, None), check_vma=False)
+                      out_specs=P(axis, None))
     return f(gray)
 
 
@@ -78,9 +80,6 @@ def sharded_grayscale(img: jax.Array, mesh: Mesh, axis: str = MODEL_AXIS,
     (``orig_h`` accepted for interface uniformity; zero pad rows map to
     zero luma, so no masking is required).
     """
-    from openmp_parallel_computing_tpu.ops.grayscale import (
-        grayscale as _grayscale_op)
-
     c, h, w = img.shape
     n = mesh.shape[axis]
     if h % n:
@@ -88,7 +87,7 @@ def sharded_grayscale(img: jax.Array, mesh: Mesh, axis: str = MODEL_AXIS,
 
     f = jax.shard_map(lambda block: _grayscale_op(block), mesh=mesh,
                       in_specs=P(None, axis, None),
-                      out_specs=P(None, axis, None), check_vma=False)
+                      out_specs=P(None, axis, None))
     return f(img)
 
 
@@ -106,9 +105,6 @@ def sharded_gaussian_blur(img: jax.Array, mesh: Mesh,
     re-zeroed so repeated passes never feed pad contamination back into the
     last real row.
     """
-    from openmp_parallel_computing_tpu.ops.conv import (
-        gaussian_blur as _blur_op)
-
     c, h, w = img.shape
     n = mesh.shape[axis]
     if h % n:
@@ -128,7 +124,7 @@ def sharded_gaussian_blur(img: jax.Array, mesh: Mesh,
         return out
 
     f = jax.shard_map(local, mesh=mesh, in_specs=P(None, axis, None),
-                      out_specs=P(None, axis, None), check_vma=False)
+                      out_specs=P(None, axis, None))
     return f(img)
 
 
@@ -153,5 +149,5 @@ def sharded_edge_pipeline(img: jax.Array, mesh: Mesh,
         return masked
 
     f = jax.shard_map(local, mesh=mesh, in_specs=P(None, axis, None),
-                      out_specs=P(None, axis, None), check_vma=False)
+                      out_specs=P(None, axis, None))
     return f(img)

@@ -18,7 +18,7 @@ import requests
 def run_request(url: str, image: str | Path, out: str | Path,
                 kernel: str = "grayscale", threads: int = 1,
                 passes: int = 1, timeout_s: float = 900.0) -> dict:
-    # timeout bounds a wedged server (first TPU compiles run minutes, so
+    # timeout bounds a wedged server (first compiles can run minutes, so
     # the default is generous — but never infinite: a requests.post with
     # no timeout hangs the whole bench sweep if the service stalls).
     with open(image, "rb") as f:

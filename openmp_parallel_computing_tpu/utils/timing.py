@@ -1,6 +1,6 @@
 """Timing and profiling utilities.
 
-Mirrors the reference's three timing mechanisms (SURVEY.md §5) the TPU way:
+Mirrors the reference's three timing mechanisms (SURVEY.md §5):
 
 - kernel-region timing (``clock_gettime`` around the compute loop,
   ``monolithic/src/main.c:31-39``) -> ``device_time``: wall-clock around a
@@ -22,20 +22,6 @@ import time
 from typing import Callable
 
 import jax
-import jax.numpy as jnp
-import numpy as np
-
-
-def sync(tree) -> None:
-    """Barrier that is honest on relayed/async backends.
-
-    ``jax.block_until_ready`` can return before execution completes on
-    remote-relayed device backends; fetching bytes that *depend* on the
-    result is the reliable sync. This pulls a single scalar derived from
-    the first array leaf (4 bytes host traffic, forces full execution).
-    """
-    leaf = jax.tree.leaves(tree)[0]
-    np.asarray(jnp.sum(jnp.ravel(leaf)[:1]))
 
 
 @dataclasses.dataclass
@@ -71,11 +57,11 @@ def device_time(fn: Callable, *args, runs: int = 5, warmup: int = 1,
     (e.g. a scan over kernel passes) so the result is per-iteration.
     """
     for _ in range(warmup):
-        sync(fn(*args))
+        jax.block_until_ready(fn(*args))
     values = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        sync(fn(*args))
+        jax.block_until_ready(fn(*args))
         values.append((time.perf_counter() - t0) / inner_iters)
     mean = sum(values) / len(values)
     var = sum((v - mean) ** 2 for v in values) / len(values)

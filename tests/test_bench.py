@@ -102,3 +102,46 @@ def test_image_set_study_runs(tmp_path, monkeypatch):
     assert set(res) == set(tiny)
     on_disk = json.loads((out / "edge_images_set.json").read_text())
     assert set(on_disk) == set(tiny)
+
+
+def _trace_events():
+    """A GPU trace in the profiler's JSON form: one device plane with two
+    fusions, a device->host and a device->device copy over a 100 us window,
+    plus a host plane whose events must be ignored."""
+    meta = [{"ph": "M", "name": "process_name", "pid": 1,
+             "args": {"name": "/device:GPU:0"}},
+            {"ph": "M", "name": "process_name", "pid": 2,
+             "args": {"name": "/host:CPU"}}]
+    ops = [("loop_add_fusion", 0, 20), ("input_reduce_fusion.3", 20, 30),
+           ("MemcpyDtoH", 60, 5), ("MemcpyDtoD", 90, 10)]
+    dev = [{"ph": "X", "pid": 1, "name": n, "ts": t, "dur": d}
+           for n, t, d in ops]
+    host = [{"ph": "X", "pid": 2, "name": "PjitFunction", "ts": 0,
+             "dur": 500}]
+    return meta + dev + host
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_trace_study_device_table(steps):
+    from openmp_parallel_computing_tpu.bench.trace_study import (
+        device_pids,
+        device_table,
+    )
+
+    events = _trace_events()
+    assert device_pids(events) == {1: "/device:GPU:0"}
+    t = device_table(events, steps)
+    assert t["window_us"] == 100.0 and t["busy_us"] == 65.0
+    assert t["idle_share"] == pytest.approx(0.35)
+    assert t["ops_per_step"] == 4 / steps
+    assert t["memcpy_per_step"] == 2 / steps
+    assert t["device_to_host_per_step"] == 1 / steps
+    fams = {f["op"]: f for f in t["families"]}
+    assert fams["xla_fusion"]["count"] == 2
+    assert {"MemcpyDtoH", "MemcpyDtoD"} <= set(fams)
+
+
+def test_trace_study_without_device_events():
+    from openmp_parallel_computing_tpu.bench.trace_study import device_table
+
+    assert device_table(_trace_events()[1:], 1)["error"] == "no device events"

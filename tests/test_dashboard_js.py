@@ -9,7 +9,7 @@ live frontend serves, not a copy) under a JS runtime with a minimal DOM
 shim: ``document.getElementById``, a tracked ``innerHTML``, and ``fetch``
 rewritten to the live in-process stack.
 
-Runtime discovery: ``node`` (>=18, native fetch) or ``bun``. The TPU dev
+Runtime discovery: ``node`` (>=18, native fetch) or ``bun``. The CI
 image ships NO JavaScript engine at all (node, bun, chromium, dukpy,
 js2py all absent and installs are pinned), so here these tests SKIP with
 that reason; on any normal dev machine or CI with node they execute the

@@ -115,7 +115,8 @@ class TestPallas:
 
     def test_solver_kernels_dominate_at_qedge0(self):
         """At q_edge=0 the shipped solve's flops are almost entirely inside
-        the Pallas kernels — the glue is layout/ADMM vector work."""
+        the sweep's scanned Riccati backward and line-searched forward
+        programs — the glue is layout/ADMM vector work."""
         from openmp_parallel_computing_tpu.models.mpc import VisualServoMPC
         from openmp_parallel_computing_tpu.utils.config import MPCConfig
 
@@ -126,4 +127,7 @@ class TestPallas:
         edge = jnp.zeros((64, 128), jnp.float32)
         c = count_flops(lambda s: mpc.solve_batch(edge, s), scen)
         assert c.flops > 0
-        assert c.pallas_flops / c.flops > 0.9
+        in_sweeps = (c.by_call.get("backward_sweep", 0.0)
+                     + c.by_call.get("forward_sweep", 0.0))
+        assert in_sweeps / c.flops > 0.9
+        assert c.pallas_flops == 0.0

@@ -123,7 +123,7 @@ class TestLegacyKernelGoldens:
             np.transpose(legacy["input"], (2, 0, 1)))
 
     def test_gaussian_conv_matches_reference(self, legacy, chw):
-        from openmp_parallel_computing_tpu.ops.conv import conv3x3
+        from openmp_parallel_computing_tpu.ops import conv3x3
 
         ours = np.asarray(conv3x3(chw, integer=True, clamp_u8=False))
         np.testing.assert_array_equal(
@@ -133,7 +133,7 @@ class TestLegacyKernelGoldens:
         """A symmetric Gaussian cannot distinguish correlation from
         convolution; the 1..9 kernel can. The reference computes
         CORRELATION (img[r+kr][c+kc] * k[kr][kc], no flip)."""
-        from openmp_parallel_computing_tpu.ops.conv import conv3x3
+        from openmp_parallel_computing_tpu.ops import conv3x3
 
         taps = ((1, 2, 3), (4, 5, 6), (7, 8, 9))
         ours = np.asarray(conv3x3(chw, taps=taps, norm=16, integer=True,
@@ -142,7 +142,7 @@ class TestLegacyKernelGoldens:
             ours, np.transpose(legacy["asym"], (2, 0, 1)))
 
     def test_gray_minmax_matches_reference(self, legacy, chw):
-        from openmp_parallel_computing_tpu.ops.reductions import (
+        from openmp_parallel_computing_tpu.ops import (
             grayscale_mean_minmax)
 
         gray, gmin, gmax = grayscale_mean_minmax(chw)

@@ -224,13 +224,13 @@ class TestServeGuards:
         assert owner2                        # next request retries the warm
 
 
-class TestPackSpeedKeying:
-    def test_repinned_pack_table_retraces(self, monkeypatch):
-        """The sublane-layout cost table steers a static choice inside the
-        traced program, so it must be part of the jit key — otherwise an
-        in-process layout A/B (bench.pack_study) silently re-times the
-        first layout's executable."""
-        from openmp_parallel_computing_tpu.models.mpc import solver as S
+class TestStaticKey:
+    def test_config_is_the_jit_key(self):
+        """The engine is a static jit argument: any config field that
+        shapes the traced program must change its key, and equal configs
+        must hit the cache (no retrace churn)."""
+        import dataclasses
+
         from openmp_parallel_computing_tpu.models.mpc.solver import (
             VisualServoMPC)
         from openmp_parallel_computing_tpu.utils.config import MPCConfig
@@ -238,16 +238,27 @@ class TestPackSpeedKeying:
         cfg = MPCConfig(horizon=4, num_features=2,
                         ilqr_iters=1, admm_iters=1)
         mpc = VisualServoMPC(cfg)
-        # jit hashes static args at CALL time: the key under one table
-        # must differ from the key under another for the same engine.
-        monkeypatch.setattr(S, "PACK_SPEED", {1: 1.0})
-        key_lane, hash_lane = mpc._static_key(), hash(mpc)
-        monkeypatch.setattr(S, "PACK_SPEED", {8: 1.0})
-        assert mpc._static_key() != key_lane
-        assert hash(mpc) != hash_lane
-        # equal table + equal config still hit the cache (no retrace churn)
-        other = VisualServoMPC(cfg)
+        other = VisualServoMPC(dataclasses.replace(cfg))
         assert mpc == other and hash(mpc) == hash(other)
+        for field, value in (("edge_sampler", "xla"),
+                             ("sampler_dtype", "bfloat16"),
+                             ("backend", "reference")):
+            changed = VisualServoMPC(dataclasses.replace(cfg,
+                                                         **{field: value}))
+            assert changed != mpc
+            assert changed._static_key() != mpc._static_key()
+
+    def test_unknown_options_rejected(self):
+        """Removed or misspelled options fail at construction instead of
+        silently falling through to another backend or sampler."""
+        from openmp_parallel_computing_tpu.utils.config import MPCConfig
+
+        for field, value in (("backend", "fused"),
+                             ("edge_sampler", "pallas"),
+                             ("edge_refresh", "never"),
+                             ("sampler_dtype", "float16")):
+            with pytest.raises(ValueError, match=field):
+                MPCConfig(**{field: value})
 
 
 class TestNetworkBroker:

@@ -167,101 +167,6 @@ class TestEdgeCostPyramidXY:
                                    rtol=1e-4, atol=1e-6)
 
 
-class TestPallasSampler:
-    """The VMEM-resident Pallas sampler (models/mpc/sampler_pallas.py)
-    must match the XLA separable sampler — values and analytic gradients —
-    including the hat-weight kink and border-clip conventions it
-    reimplements in-kernel (costs._hat_weights / _clip_coord)."""
-
-    def _pyramid(self, rng):
-        edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
-        return costs.build_cost_pyramid(edge), (64, 128)
-
-    def _coords(self, rng, K, m, B):
-        # Mix interior, off-frame (clamped), and exactly-on-grid points:
-        # the regimes where the kink/border conventions matter.
-        x = rng.uniform(-1.4, 1.4, (K, m, B)).astype(np.float32)
-        y = rng.uniform(-1.4, 1.4, (K, m, B)).astype(np.float32)
-        x[0, 0] = -1.0   # exactly on the border
-        y[0, 0] = 1.0
-        if m > 1:
-            x[:, 1] = np.round(x[:, 1], 0)  # integer normalized coords
-        return jnp.asarray(x), jnp.asarray(y)
-
-    def test_values_match_xla_sampler(self):
-        from openmp_parallel_computing_tpu.models.mpc import sampler_pallas
-
-        rng = np.random.default_rng(11)
-        pyramid, (hh, ww) = self._pyramid(rng)
-        x, y = self._coords(rng, 5, 4, 256)
-        want = costs.edge_cost_pyramid_xy(pyramid, x, y, hh, ww)
-        got = sampler_pallas.edge_vals_lanes(pyramid, x, y, hh, ww,
-                                             costs.PYRAMID_SCALES)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-5, atol=1e-6)
-
-    def test_vg_matches_xla_autodiff(self):
-        from openmp_parallel_computing_tpu.models.mpc import sampler_pallas
-
-        rng = np.random.default_rng(12)
-        pyramid, (hh, ww) = self._pyramid(rng)
-        K, m, B = 4, 4, 256
-        x, y = self._coords(rng, K, m, B)
-
-        def val_sum(q):
-            return jnp.sum(costs.edge_cost_pyramid_xy(
-                pyramid, q[:, :m], q[:, m:], hh, ww))
-
-        ps_l = jnp.concatenate([x, y], axis=1)
-        g_want = jax.grad(val_sum)(ps_l)
-        v_want = costs.edge_cost_pyramid_xy(pyramid, x, y, hh, ww)
-        v, gx, gy = sampler_pallas.edge_vg_lanes(pyramid, x, y, hh, ww,
-                                                 costs.PYRAMID_SCALES)
-        np.testing.assert_allclose(np.asarray(v), np.asarray(v_want),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(gx),
-                                   np.asarray(g_want[:, :m]),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(gy),
-                                   np.asarray(g_want[:, m:]),
-                                   rtol=1e-4, atol=1e-6)
-
-    def test_nonaligned_point_count_pads(self):
-        """Point counts that don't divide the kernel TILE must pad
-        transparently (every real config: K*m*B is rarely TILE-aligned)."""
-        from openmp_parallel_computing_tpu.models.mpc import sampler_pallas
-
-        rng = np.random.default_rng(13)
-        pyramid, (hh, ww) = self._pyramid(rng)
-        x, y = self._coords(rng, 3, 3, 7)      # 63 points
-        want = costs.edge_cost_pyramid_xy(pyramid, x, y, hh, ww)
-        got = sampler_pallas.edge_vals_lanes(pyramid, x, y, hh, ww,
-                                             costs.PYRAMID_SCALES)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-5, atol=1e-6)
-
-    @pytest.mark.parametrize("edge_refresh", ["solve", "admm"])
-    def test_solver_equivalence_xla_vs_pallas_sampler(self, edge_refresh):
-        """Full sweep-backend solve: edge_sampler="pallas" must reproduce
-        the XLA sampler's solution (same backend, same schedule)."""
-        rng = np.random.default_rng(14)
-        edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
-
-        def solve(sampler):
-            cfg = MPCConfig(horizon=8, num_features=4, ilqr_iters=2,
-                            admm_iters=3, edge_refresh=edge_refresh,
-                            edge_sampler=sampler)
-            mpc = VisualServoMPC(cfg)
-            scen = mpc.random_scenarios(jax.random.PRNGKey(5), 6)
-            sol = mpc.solve_batch(edge, scen)
-            return np.asarray(sol.us), np.asarray(sol.cost)
-
-        us_x, cost_x = solve("xla")
-        us_p, cost_p = solve("pallas")
-        np.testing.assert_allclose(us_p, us_x, rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(cost_p, cost_x, rtol=1e-4, atol=1e-4)
-
-
 class TestAnalyticSampler:
     """costs.edge_vg_pyramid_xy: the one-pass analytic value+gradient XLA
     sampler must reproduce the autodiff of edge_cost_pyramid_xy — values
@@ -442,53 +347,6 @@ class TestSolver:
         assert sol.ps.shape == (5, small_cfg.horizon + 1,
                                 2 * small_cfg.num_features)
         assert sol.cost.shape == (5,)
-
-    def test_fused_backend_matches_reference(self, small_cfg):
-        """The Pallas batched-Riccati solver must reproduce the vmapped XLA
-        solver to fp tolerance on an identical problem."""
-        import dataclasses
-        import jax.numpy as jnp
-        rng = np.random.default_rng(13)
-        edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
-        fused = VisualServoMPC(
-            dataclasses.replace(small_cfg, backend="fused", q_edge=0.1))
-        ref = VisualServoMPC(
-            dataclasses.replace(small_cfg, backend="reference", q_edge=0.1))
-        scen = fused.random_scenarios(jax.random.PRNGKey(4), 5)
-        sf = fused.solve_batch(edge, scen)
-        sr = ref.solve_batch(edge, scen)
-        # fp noise amplifies over 10 nonconvex sweeps; controls agree to
-        # ~3e-3 in practice, costs much tighter.
-        np.testing.assert_allclose(np.asarray(sf.us), np.asarray(sr.us),
-                                   rtol=2e-2, atol=5e-3)
-        np.testing.assert_allclose(np.asarray(sf.cost), np.asarray(sr.cost),
-                                   rtol=1e-3, atol=1e-3)
-
-    def test_fused_backward_matches_sequential(self):
-        """Kernel-level check: backward_batched == vmap(backward)."""
-        from openmp_parallel_computing_tpu.models.mpc import riccati
-        from openmp_parallel_computing_tpu.models.mpc.riccati_pallas import (
-            backward_batched)
-        import jax.numpy as jnp
-        rng = np.random.default_rng(2)
-        B, H, n, c = 3, 6, 8, 6
-        fx = jnp.asarray(rng.normal(size=(B, H, n, n)) * 0.2
-                         + np.eye(n), jnp.float32)
-        fu = jnp.asarray(rng.normal(size=(B, H, n, c)) * 0.3, jnp.float32)
-        lx = jnp.asarray(rng.normal(size=(B, H, n)), jnp.float32)
-        lu = jnp.asarray(rng.normal(size=(B, H, c)), jnp.float32)
-        lxx = jnp.broadcast_to(2.0 * jnp.eye(n), (B, H, n, n))
-        luu = jnp.broadcast_to(0.5 * jnp.eye(c), (B, H, c, c))
-        lux = jnp.zeros((B, H, c, n), jnp.float32)
-        vx = jnp.asarray(rng.normal(size=(B, n)), jnp.float32)
-        vxx = jnp.broadcast_to(2.0 * jnp.eye(n), (B, n, n))
-        K, k = backward_batched(fx, fu, lx, lu, lxx, luu, lux, vx, vxx)
-        gains = jax.vmap(lambda *a: riccati.backward(*a))(
-            fx, fu, lx, lu, lxx, luu, lux, vx, vxx)
-        np.testing.assert_allclose(np.asarray(K), np.asarray(gains.K),
-                                   rtol=2e-4, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(k), np.asarray(gains.k),
-                                   rtol=2e-4, atol=2e-5)
 
     def test_assoc_backend_matches_reference(self, small_cfg):
         """Full-solve equivalence of the log-depth backend."""
@@ -755,7 +613,7 @@ class TestAdmmRelax:
             cfg, backend=backend, q_edge=0.1, admm_relax=relax))
         return mpc.solve_batch(edge, scen)
 
-    @pytest.mark.parametrize("backend", ["sweep", "fused"])
+    @pytest.mark.parametrize("backend", ["sweep", "assoc"])
     def test_backends_agree_when_relaxed(self, small_cfg, backend):
         rng = np.random.default_rng(41)
         edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
@@ -806,16 +664,16 @@ class TestDualWarmStart:
 
     def test_warm_duals_equivalent_across_backends(self):
         """A nonzero Scenario.y0 must produce the same solution (and the
-        same returned Solution.dual) on every scan backend."""
+        same returned Solution.dual) on every backend."""
         rng = np.random.default_rng(29)
         edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
         y0 = jnp.asarray(rng.uniform(-0.2, 0.2, (4, 6, 6)), jnp.float32)
         sols = {}
-        for backend in ("sweep", "fused", "reference"):
+        for backend in ("sweep", "reference", "assoc"):
             mpc = VisualServoMPC(self._cfg(backend))
             scen = mpc.random_scenarios(jax.random.PRNGKey(31), 4)
             sols[backend] = mpc.solve_batch(edge, scen._replace(y0=y0))
-        for b in ("fused", "reference"):
+        for b in ("reference", "assoc"):
             np.testing.assert_allclose(np.asarray(sols["sweep"].us),
                                        np.asarray(sols[b].us),
                                        rtol=2e-4, atol=2e-4)
@@ -865,18 +723,6 @@ class TestDualWarmStart:
         # warm duals must not make constraint satisfaction worse
         assert resid[True] <= resid[False] * 1.05, resid
 
-    def test_full_solve_rejects_warm_duals(self):
-        rng = np.random.default_rng(61)
-        edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
-        cfg = MPCConfig(horizon=4, num_features=2, ilqr_iters=1,
-                        admm_iters=2, edge_refresh="solve",
-                        full_solve=True, admm_iters_extra=0)
-        mpc = VisualServoMPC(cfg)
-        scen = mpc.random_scenarios(jax.random.PRNGKey(67), 4)
-        with pytest.raises(ValueError, match="full_solve"):
-            mpc.solve_batch(edge,
-                            scen._replace(y0=jnp.zeros_like(scen.us0)))
-
     def test_decay_zero_reproduces_cold_loop(self):
         """dual_decay=0 must reproduce the cold-dual loop bit-for-bit —
         the carry structure alone cannot change the math (and γ is
@@ -925,7 +771,7 @@ class TestAdaptiveBudget:
         return edge, scen
 
     @pytest.mark.parametrize("backend",
-                             ["sweep", "fused", "reference", "assoc"])
+                             ["sweep", "reference", "assoc"])
     def test_boundary_cases_bit_exact(self, edge_and_scen, backend):
         edge, scen = edge_and_scen
         trig = self._solve(edge, scen, backend=backend, admm_iters=2,
@@ -939,7 +785,7 @@ class TestAdaptiveBudget:
         np.testing.assert_array_equal(np.asarray(skip.us),
                                       np.asarray(fixed2.us))
 
-    @pytest.mark.parametrize("backend", ["fused", "reference", "assoc"])
+    @pytest.mark.parametrize("backend", ["reference", "assoc"])
     def test_backends_agree_at_mid_tolerance(self, edge_and_scen, backend):
         edge, scen = edge_and_scen
         kw = dict(admm_iters=2, admm_iters_extra=3, admm_tol=0.05)
@@ -950,12 +796,6 @@ class TestAdaptiveBudget:
         np.testing.assert_allclose(np.asarray(ss.cost),
                                    np.asarray(sb.cost),
                                    rtol=1e-3, atol=1e-3)
-
-    def test_full_solve_conflict_raises(self, edge_and_scen):
-        edge, scen = edge_and_scen
-        with pytest.raises(ValueError, match="admm_iters_extra"):
-            self._solve(edge, scen, backend="sweep", edge_refresh="solve",
-                        full_solve=True, admm_iters_extra=2)
 
     @pytest.mark.parametrize("backend", ["sweep", "reference"])
     def test_receding_loop_with_adaptive_budget(self, backend):
@@ -975,49 +815,6 @@ class TestAdaptiveBudget:
         assert np.isfinite(np.asarray(costs)).all()
         assert scen_out.y0 is not None          # dual carry still active
         assert np.abs(np.asarray(u0s)).max() <= cfg.u_limit + 1e-6
-
-
-class TestRolloutPaths:
-    """The nominal rollout has two batch-size-selected implementations
-    (XLA scan of _dyn_step vs the zero-gain forward_sweep kernel —
-    solver.ROLLOUT_SCAN_MAX_BP). They must produce the same Solution;
-    the threshold is part of the jit static key so an in-process A/B
-    retraces instead of re-timing one path's executable."""
-
-    def _solve(self, edge, scen):
-        cfg = MPCConfig(horizon=8, num_features=4, q_edge=0.1,
-                        edge_refresh="solve")
-        return VisualServoMPC(cfg).solve_batch(edge, scen)
-
-    def test_paths_equivalent(self, monkeypatch):
-        from openmp_parallel_computing_tpu.models.mpc import solver as S
-
-        rng = np.random.default_rng(97)
-        edge = jnp.asarray(rng.uniform(0, 255, (64, 128)), jnp.float32)
-        scen = VisualServoMPC(MPCConfig(horizon=8, num_features=4)
-                              ).random_scenarios(jax.random.PRNGKey(41), 6)
-        monkeypatch.setattr(S, "ROLLOUT_SCAN_MAX_BP", 1 << 30)
-        scan_sol = self._solve(edge, scen)
-        monkeypatch.setattr(S, "ROLLOUT_SCAN_MAX_BP", 0)
-        kern_sol = self._solve(edge, scen)
-        np.testing.assert_allclose(np.asarray(scan_sol.us),
-                                   np.asarray(kern_sol.us),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(scan_sol.ps),
-                                   np.asarray(kern_sol.ps),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(scan_sol.cost),
-                                   np.asarray(kern_sol.cost),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_threshold_in_static_key(self, monkeypatch):
-        from openmp_parallel_computing_tpu.models.mpc import solver as S
-
-        mpc = VisualServoMPC(MPCConfig(horizon=4, num_features=2))
-        monkeypatch.setattr(S, "ROLLOUT_SCAN_MAX_BP", 0)
-        k0 = mpc._static_key()
-        monkeypatch.setattr(S, "ROLLOUT_SCAN_MAX_BP", 8192)
-        assert mpc._static_key() != k0
 
 
 class TestSamplerDtype:

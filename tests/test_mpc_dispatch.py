@@ -55,7 +55,7 @@ def _direct_solve(frame_chw, arrays):
 
     from openmp_parallel_computing_tpu.models.mpc import (
         Scenario, VisualServoMPC)
-    from openmp_parallel_computing_tpu.ops.pipeline import edge_pipeline
+    from openmp_parallel_computing_tpu.ops import edge_pipeline
     from openmp_parallel_computing_tpu.utils.config import MPCConfig
 
     cfg = MPCConfig(**CFG)

@@ -69,11 +69,9 @@ class TestDistributed:
     def test_pod_shape_rehearsal(self):
         """BASELINE config 5 scaled to the 8-device CPU mesh: H=50, 8
         features, 512 scenarios, a 1080p row-sharded frame, shipped
-        iteration defaults. Exercises the VMEM scratch guards
-        (solver.sweep_vmem_estimates), pooled-band psum perception, and
+        iteration defaults. Exercises pooled-band psum perception and
         halo exchange at production dimensions — the small-shape tests
-        above cannot catch a guard that admits configs only real shapes
-        overflow (round-2 VERDICT weak #6)."""
+        above cannot catch a shape bug that only real sizes hit."""
         mesh = parallel.make_mesh(data=4, model=2)
         cfg_pod = MPCConfig(horizon=50, num_features=8)
         dmpc = DistributedMPC(cfg_pod, mesh)

@@ -1,5 +1,5 @@
-"""Kernel unit tests: Pallas kernels vs their pure-jnp twins, plus numpy
-cross-checks of the twins themselves (the reference-C semantics)."""
+"""Image-op unit tests: the ``ops`` entry points vs their pure-jnp twins
+and numpy models of the reference-C semantics, at odd sizes and RGBA."""
 
 import numpy as np
 import pytest
@@ -100,11 +100,10 @@ class TestSobel:
         assert got[:, 0].max() == 0 and got[:, -1].max() == 0
 
     def test_multi_strip(self, rng):
-        # Tall image -> multiple grid strips: exercises the halo exchange.
-        img = rng.integers(0, 256, size=(200, 128), dtype=np.uint8)
-        got = np.asarray(ops.sobel(img, strip=32))
-        want = np.asarray(xla_ref.sobel(img))
-        np.testing.assert_array_equal(got, want)
+        # Tall, odd-width plane against the numpy model of the C stencil.
+        img = rng.integers(0, 256, size=(200, 131), dtype=np.uint8)
+        got = np.asarray(ops.sobel(img))
+        np.testing.assert_array_equal(got, np_sobel(img))
 
     def test_constant_image_no_edges(self):
         img = np.full((64, 128), 77, np.uint8)
@@ -112,11 +111,10 @@ class TestSobel:
 
     def test_border_none_zero_out_of_plane(self, rng):
         """border="none" computes every row as interior with ZERO
-        out-of-plane neighbors — the first/last strip must not wrap its
-        own rows in as halo (regression: the clamped BlockSpec views fed
-        the strip's opposite edge row before stencil_mag masked it)."""
+        out-of-plane neighbors — the first/last row must not wrap the
+        opposite edge row in as a neighbor."""
         img = rng.integers(1, 256, size=(96, 128), dtype=np.uint8)
-        got = np.asarray(ops.sobel(img, strip=32, border="none"))
+        got = np.asarray(ops.sobel(img, border="none"))
         # expected: interior stencil of the zero-padded plane, all rows
         padded = np.zeros((98, 130), np.uint8)
         padded[1:-1, 1:-1] = img
@@ -144,14 +142,15 @@ class TestEdgePipeline:
         np.testing.assert_array_equal(got[3], small_rgba[3])
 
     def test_multi_strip(self, rng):
-        img = rng.integers(0, 256, size=(3, 200, 128), dtype=np.uint8)
-        got = np.asarray(ops.edge_pipeline(img, strip=32))
-        want = np.asarray(xla_ref.edge_pipeline(img))
-        np.testing.assert_array_equal(got, want)
+        img = rng.integers(0, 256, size=(3, 200, 131), dtype=np.uint8)
+        got = np.asarray(ops.edge_pipeline(img))
+        want = np_sobel(np_grayscale(img)[0])
+        for c in range(3):
+            np.testing.assert_array_equal(got[c], want)
 
 
 class TestEdgePyramidBase:
-    """Fused perception -> pooled pyramid base vs the staged path."""
+    """Perception -> pooled pyramid base vs the staged path."""
 
     @pytest.mark.parametrize("shape", [(3, 48, 160), (3, 70, 130),
                                        (3, 160, 256), (4, 33, 129)])
@@ -165,14 +164,14 @@ class TestEdgePyramidBase:
         # integer block sums stay exact in f32 -> bit-exact parity
         np.testing.assert_array_equal(got, want)
 
-    @pytest.mark.parametrize("strip", [32, 64, 128])
-    def test_multi_strip_layouts(self, rng, strip):
-        """Both output layouts (leading strip dim for rps%8!=0, flat 2D
-        otherwise) across several strips."""
+    @pytest.mark.parametrize("h", [300, 320, 333])
+    def test_multi_strip_layouts(self, rng, h):
+        """Heights with a partial last block row (300, 333) and without
+        (320), all with a partial last block column."""
         from openmp_parallel_computing_tpu.models.mpc import costs
 
-        img = rng.integers(0, 256, size=(3, 300, 140), dtype=np.uint8)
-        got = np.asarray(ops.edge_pyramid_base(img, s=16, strip=strip))
+        img = rng.integers(0, 256, size=(3, h, 140), dtype=np.uint8)
+        got = np.asarray(ops.edge_pyramid_base(img, s=16))
         edge = np.asarray(ops.edge_pipeline(img))[0].astype(np.float32)
         want = np.asarray(costs.avg_pool(edge, 16))
         np.testing.assert_array_equal(got, want)
@@ -207,8 +206,8 @@ class TestConv3x3:
             np.asarray(xla_ref.conv3x3(small_rgb)), want)
 
     def test_multi_strip_and_edges(self, rng):
-        img = rng.integers(0, 256, size=(3, 200, 128), dtype=np.uint8)
-        got = np.asarray(ops.conv3x3(img, strip=32))
+        img = rng.integers(0, 256, size=(4, 200, 131), dtype=np.uint8)
+        got = np.asarray(ops.conv3x3(img))
         want = self.np_conv(img, xla_ref.GBLUR_KERNEL, 16)
         np.testing.assert_array_equal(got, want)
 

@@ -8,8 +8,17 @@ from openmp_parallel_computing_tpu.probe import probe
 
 def test_probe_reports_support():
     info = probe()
-    assert info["pallas"] == "supported"
+    assert info["compute"] == "supported"
+    assert info["backend"] == "cpu"
     assert info["device_count"] == 8  # virtual CPU mesh
+
+
+def test_probe_main_fails_without_gpu(capsys):
+    """The command never reports the CPU as the accelerator."""
+    from openmp_parallel_computing_tpu.probe import main
+
+    assert main() == 1
+    assert "no GPU attached" in capsys.readouterr().out
 
 
 class TestPasses:
@@ -33,8 +42,8 @@ class TestPasses:
         np.testing.assert_array_equal(twice, staged)
 
     def test_grayscale_inplace_alias_correct(self, small_rgb):
-        # The donation/aliasing path must not corrupt results (the in-place
-        # contract of the reference kernel, now as buffer reuse).
+        # Repeated passes over the loop carry must not corrupt results
+        # (the in-place contract of the reference kernel).
         got = np.asarray(ops.grayscale(small_rgb.copy(), passes=3))
         want = np.asarray(ops.grayscale(small_rgb))
         np.testing.assert_array_equal(got, want)

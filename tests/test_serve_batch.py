@@ -40,7 +40,7 @@ def _scen(b, m=M, h=H, seed=0):
 class TestMultiFrameSolve:
     """control_step_multi: per-scenario frames in ONE computation."""
 
-    @pytest.mark.parametrize("backend", ["sweep", "fused", "reference"])
+    @pytest.mark.parametrize("backend", ["sweep", "reference", "assoc"])
     def test_matches_per_frame_solves(self, backend):
         cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=2,
                         admm_iters=2, admm_iters_extra=0, backend=backend)
@@ -63,7 +63,7 @@ class TestMultiFrameSolve:
     def test_solve_batch_multi_identical_frames_match_shared(self):
         """B copies of one frame through the multi path == the shared-
         pyramid solve_batch (same math, batched pyramid)."""
-        from openmp_parallel_computing_tpu.ops.pipeline import edge_pipeline
+        from openmp_parallel_computing_tpu.ops import edge_pipeline
 
         cfg = MPCConfig(horizon=H, num_features=M, ilqr_iters=2,
                         admm_iters=2, admm_iters_extra=0)

@@ -1,17 +1,24 @@
-"""Coverage for the sweep-kernel configurations CI would otherwise never
-reach: the sublane-packed layout and the split two-launch path (both engage
-only at batch/scratch sizes beyond normal test scale)."""
+"""The lanes sweep backend (``models.mpc.sweep``, batch-last ``lax.scan``
+programs) against the per-scenario reference backend, across batch sizes
+on both sides of every old tile boundary, horizons, edge-refresh
+schedules, over-relaxation and cold or warm ADMM duals; plus the
+line-search candidate pick the sweep relies on."""
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openmp_parallel_computing_tpu.models.mpc import VisualServoMPC
-from openmp_parallel_computing_tpu.models.mpc import sweep_pallas as sp
+from openmp_parallel_computing_tpu.models.mpc import VisualServoMPC, sweep
+from openmp_parallel_computing_tpu.models.mpc import dynamics, riccati
 from openmp_parallel_computing_tpu.utils.config import MPCConfig
+
+REFRESH = ("ilqr", "admm", "solve")
+RELAX = (1.0, 1.6)
+DUALS = ("cold", "warm")
 
 
 @pytest.fixture(scope="module")
@@ -25,311 +32,186 @@ def cfg():
     return MPCConfig(horizon=4, num_features=2, ilqr_iters=2, admm_iters=2)
 
 
-def test_packed_layout_matches_unpacked(cfg):
-    """Kernel-level equivalence of the sublane-packed layout (normally only
-    engaged at B >= 8192) against the lane-only layout, B = 2 packed
-    tiles."""
-    B, h, mfeat = 2048, cfg.horizon, cfg.num_features
-    n = 2 * mfeat
-    rng = np.random.default_rng(1)
-    kw = dict(m=mfeat, q=1.0, r=0.01, rho=0.1, qe=0.0, dt=1 / 30)
-    ps = jnp.asarray(rng.normal(size=(h + 1, n, B)) * 0.3, jnp.float32)
-    us = jnp.asarray(rng.normal(size=(h, 6, B)) * 0.2, jnp.float32)
-    z = jnp.clip(us, -1, 1)
-    y = jnp.zeros_like(us)
-    g = jnp.zeros((h + 1, n, B), jnp.float32)
-    target = jnp.asarray(rng.normal(size=(n, B)) * 0.2, jnp.float32)
-    izd = jnp.asarray(rng.uniform(0.3, 1.0, (mfeat, B)), jnp.float32)
-    p0 = ps[0]
-
-    def packed(a):
-        return a.reshape(a.shape[:-1] + (B // sp.LANE, sp.LANE))
-
-    ps_c1, us_c1, J1 = sp.unified_sweep(p0, ps, us, z, y, g, target, izd,
-                                        pack=False, **kw)
-    ps_c2, us_c2, J2 = sp.unified_sweep(
-        packed(p0), packed(ps), packed(us), packed(z), packed(y), packed(g),
-        packed(target), packed(izd), pack=True, **kw)
-    np.testing.assert_allclose(
-        np.asarray(us_c2).reshape(us_c1.shape), np.asarray(us_c1),
-        rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(J2).reshape(J1.shape), np.asarray(J1),
-        rtol=1e-4, atol=1e-4)
+def _solve_pair(edge_map, B, H, refresh, relax, duals):
+    cfg = MPCConfig(horizon=H, num_features=2, ilqr_iters=1, admm_iters=2,
+                    admm_iters_extra=0, edge_refresh=refresh,
+                    admm_relax=relax)
+    sweep_mpc = VisualServoMPC(cfg)
+    ref_mpc = VisualServoMPC(dataclasses.replace(cfg, backend="reference"))
+    scen = sweep_mpc.random_scenarios(jax.random.PRNGKey(B + H), B)
+    if duals == "warm":
+        rng = np.random.default_rng(B)
+        scen = scen._replace(y0=jnp.asarray(
+            rng.uniform(-0.2, 0.2, scen.us0.shape), jnp.float32))
+    return sweep_mpc.solve_batch(edge_map, scen), \
+        ref_mpc.solve_batch(edge_map, scen)
 
 
-def test_partial_sublane_factors_match(cfg, monkeypatch):
-    """Solver-level equivalence of every sublane factor the layout chooser
-    can pick (s = 2/4/8 vs lane-only) on one scenario batch."""
-    from openmp_parallel_computing_tpu.models.mpc import solver as S
-
-    rng = np.random.default_rng(9)
-    edge = jnp.asarray(rng.uniform(0, 255, (32, 128)), jnp.float32)
-    mpc = VisualServoMPC(cfg)
-    scen = mpc.random_scenarios(jax.random.PRNGKey(7), 256)
-    results = {}
-    for s in (1, 2, 8):
-        monkeypatch.setattr(S, "_choose_pack", lambda B, s=s: s)
-        jax.clear_caches()
-        sol = mpc.solve_batch(edge, scen)
-        results[s] = (np.asarray(sol.us), np.asarray(sol.cost))
-    # s=2 only lowers on real TPUs when the batch is one packed tile (and
-    # measured slower there — see solver.PACK_SPEED); it stays covered here
-    # in interpret mode to keep the layout plumbing batch-dim agnostic.
-    for s in (2, 8):
-        np.testing.assert_allclose(results[s][0], results[1][0],
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(results[s][1], results[1][1],
-                                   rtol=2e-5, atol=2e-5)
+def _assert_equivalent(ss, sr, duals):
+    # Same tolerances as the other cross-backend tests: fp noise can flip a
+    # line-search tie in a nonconvex sweep; costs agree much tighter.
+    np.testing.assert_allclose(np.asarray(ss.us), np.asarray(sr.us),
+                               rtol=2e-2, atol=5e-3)
+    np.testing.assert_allclose(np.asarray(ss.cost), np.asarray(sr.cost),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(ss.primal_residual),
+                               np.asarray(sr.primal_residual),
+                               rtol=2e-2, atol=5e-3)
+    if duals == "warm":
+        np.testing.assert_allclose(np.asarray(ss.dual), np.asarray(sr.dual),
+                                   rtol=2e-2, atol=5e-3)
+    else:
+        assert ss.dual is None and sr.dual is None
 
 
-def test_choose_pack_policy():
-    """The chooser weighs padding waste against measured layout speed."""
-    from openmp_parallel_computing_tpu.models.mpc.solver import _choose_pack
-
-    assert _choose_pack(128) == 1       # one lane tile; packing pads 8x
-    assert _choose_pack(256) == 1       # partial factors measured slower
-    # lane-only measured faster at every batch on the structural kernels
-    # (pack_study_r2h.json), so the chooser takes it even at exact packed
-    # tile multiples; packed would need a speed ratio > 1 to ever win.
-    assert _choose_pack(1024) == 1
-    assert _choose_pack(8192) == 1
-    assert _choose_pack(640) == 1
-    from openmp_parallel_computing_tpu.models.mpc import solver as S
-    saved = dict(S.PACK_SPEED)
-    try:  # the policy math still prefers packed when measured faster
-        S.PACK_SPEED = {1: 1.0, 8: 1.25}
-        assert _choose_pack(1024) == 8  # full packed tile, speed wins
-        assert _choose_pack(900) == 8   # 1024-padded but speed wins
-        assert _choose_pack(640) == 1   # padding waste overwhelms 1.25x
-    finally:
-        S.PACK_SPEED = saved
+# Batch sizes around the 128-scenario boundary the removed lane tiling
+# padded to, across both horizons; the schedule options cycle so each
+# value meets both horizons.
+_BATCH_GRID = [
+    (B, H, REFRESH[i % 3], RELAX[i % 2], DUALS[(i // 2) % 2])
+    for i, (B, H) in enumerate(itertools.product((1, 127, 128, 129, 300),
+                                                 (3, 20)))]
 
 
-def test_split_path_matches_unified(edge_map, cfg):
-    """backward_sweep + forward_sweep == unified_sweep (the split pair is
-    the fallback when the gains scratch exceeds VMEM)."""
-    B, h, mfeat = 128, cfg.horizon, cfg.num_features
-    n = 2 * mfeat
-    rng = np.random.default_rng(2)
-    kw = dict(m=mfeat, q=1.0, r=0.01, rho=0.1, qe=0.0, dt=1 / 30)
-    ps = jnp.asarray(rng.normal(size=(h + 1, n, B)) * 0.3, jnp.float32)
-    us = jnp.asarray(rng.normal(size=(h, 6, B)) * 0.2, jnp.float32)
-    z = jnp.clip(us, -1, 1)
-    y = jnp.zeros_like(us)
-    g = jnp.zeros((h + 1, n, B), jnp.float32)
-    target = jnp.asarray(rng.normal(size=(n, B)) * 0.2, jnp.float32)
-    izd = jnp.asarray(rng.uniform(0.3, 1.0, (mfeat, B)), jnp.float32)
-    p0 = ps[0]
+@pytest.mark.parametrize("B,H,refresh,relax,duals", _BATCH_GRID)
+def test_sweep_matches_reference_batches(edge_map, B, H, refresh, relax,
+                                         duals):
+    ss, sr = _solve_pair(edge_map, B, H, refresh, relax, duals)
+    assert ss.us.shape == (B, H, 6)
+    _assert_equivalent(ss, sr, duals)
 
-    K, kff = sp.backward_sweep(ps, us, z, y, g, target, izd, **kw)
-    ps_s, us_s, J_s = sp.forward_sweep(p0, ps, us, K, kff, z, y, g, target,
-                                       izd, **kw)
-    ps_u, us_u, J_u = sp.unified_sweep(p0, ps, us, z, y, g, target, izd,
-                                       **kw)
-    np.testing.assert_allclose(np.asarray(us_s), np.asarray(us_u),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ps_s), np.asarray(ps_u),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(J_s), np.asarray(J_u),
-                               rtol=1e-5, atol=1e-5)
+
+@pytest.mark.parametrize("refresh,relax,duals",
+                         list(itertools.product(REFRESH, RELAX, DUALS)))
+def test_sweep_matches_reference_schedules(edge_map, refresh, relax, duals):
+    ss, sr = _solve_pair(edge_map, 5, 3, refresh, relax, duals)
+    _assert_equivalent(ss, sr, duals)
 
 
 def test_solver_multi_tile_batch(edge_map, cfg):
-    """Sweep solver across multiple lane tiles matches the fused backend
-    (kernel-level packed equivalence is covered above)."""
+    """Sweep solver at a batch of several hundred scenarios matches the
+    reference backend."""
     mpc_sweep = VisualServoMPC(dataclasses.replace(cfg, backend="sweep"))
-    mpc_ref = VisualServoMPC(dataclasses.replace(cfg, backend="fused"))
-    scen = mpc_sweep.random_scenarios(jax.random.PRNGKey(3), 384)  # 3 tiles
+    mpc_ref = VisualServoMPC(dataclasses.replace(cfg, backend="reference"))
+    scen = mpc_sweep.random_scenarios(jax.random.PRNGKey(3), 384)
     ss = mpc_sweep.solve_batch(edge_map, scen)
     sr = mpc_ref.solve_batch(edge_map, scen)
     np.testing.assert_allclose(np.asarray(ss.cost), np.asarray(sr.cost),
                                rtol=1e-3, atol=1e-3)
 
 
-class TestMultiSweep:
-    """multi_sweep == sweeps x (unified_sweep + solver-style pick) with a
-    fixed edge linearization."""
+class TestLanesSweep:
+    """Step-level checks of ``models.mpc.sweep`` against the reference
+    Riccati recursion and dynamics on the same linearization."""
 
-    def _inputs(self):
-        rng = np.random.default_rng(5)
-        H, m, B = 6, 4, 128
+    H, M, B = 5, 3, 7
+
+    def _inputs(self, seed=5):
+        rng = np.random.default_rng(seed)
+        H, m, B = self.H, self.M, self.B
         n, c = 2 * m, 6
-        kw = dict(m=m, q=1.0, r=0.01, rho=0.1, qe=0.1, dt=1 / 30,
-                  pack=False)
-        p0 = jnp.asarray(rng.uniform(-.5, .5, (n, B)), jnp.float32)
-        us = jnp.asarray(rng.normal(size=(H, c, B)) * 0.1, jnp.float32)
-        z = jnp.clip(us, -1, 1)
-        y = jnp.zeros_like(us)
-        g = jnp.asarray(rng.normal(size=(H + 1, n, B)) * 0.2, jnp.float32)
-        tg = jnp.asarray(rng.uniform(-.4, .4, (n, B)), jnp.float32)
-        izd = jnp.asarray(rng.uniform(0.2, 1.0, (m, B)), jnp.float32)
-        ps = sp.forward_sweep(
-            p0, jnp.zeros((H + 1, n, B)), us, jnp.zeros((H, c, n, B)),
-            jnp.zeros((H, c, B)), z, y, jnp.zeros((H + 1, n, B)), tg, izd,
-            **kw)[0][:, 0]
-        return p0, ps, us, z, y, g, tg, izd, kw
+        p0 = rng.uniform(-.5, .5, (B, n)).astype(np.float32)
+        us = (rng.normal(size=(B, H, c)) * 0.1).astype(np.float32)
+        z = np.clip(us + 0.05, -0.1, 0.1)
+        y = (rng.normal(size=(B, H, c)) * 0.05).astype(np.float32)
+        g = (rng.normal(size=(B, H + 1, n)) * 0.2).astype(np.float32)
+        tg = rng.uniform(-.4, .4, (B, n)).astype(np.float32)
+        depth = rng.uniform(1.0, 5.0, (B, m)).astype(np.float32)
+        return p0, us, z, y, g, tg, depth
 
     @staticmethod
-    def _pick(J, cand, a_axis):
-        from openmp_parallel_computing_tpu.models.mpc import solver as S
+    def _split(a):
+        s = a.shape
+        return a.reshape(s[:-1] + (-1, 2)).swapaxes(-1, -2).reshape(s)
 
-        return S._pick_candidates(J, cand, a_axis, 1)
+    def test_rollout_matches_dynamics(self):
+        p0, us, _, _, _, _, depth = self._inputs()
+        dt = 1 / 30
+        want = jax.vmap(lambda p, u, d: dynamics.rollout(p, u, d, dt))(
+            p0, us, depth)
+        got = sweep.rollout(jnp.asarray(self._split(p0)).T,
+                            jnp.transpose(us, (1, 2, 0)),
+                            jnp.asarray(1.0 / depth).T, dt, self.M)
+        np.testing.assert_allclose(
+            np.asarray(jnp.transpose(got, (2, 0, 1))),
+            self._split(np.asarray(want)), rtol=1e-5, atol=1e-6)
 
-    def test_single_sweep_matches_unified_plus_pick(self):
-        p0, ps, us, z, y, g, tg, izd, kw = self._inputs()
-        ps_c, us_c, J = sp.unified_sweep(p0, ps, us, z, y, g, tg,
-                                                   izd, **kw)
-        us_r = self._pick(J, us_c, 1)
-        ps_r = self._pick(J, ps_c, 1)
-        ps_m, us_m = sp.multi_sweep(p0, ps, us, z, y, g, tg, izd,
-                                              sweeps=1, **kw)
-        np.testing.assert_allclose(np.asarray(us_m), np.asarray(us_r),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(ps_m), np.asarray(ps_r),
-                                   rtol=1e-5, atol=1e-5)
-
-    def test_multi_sweep_matches_iterated(self):
-        """S fused sweeps == S chained launches (bit-level handoff), and
-        stay within line-search tie-flip tolerance of the unified path."""
-        p0, ps, us, z, y, g, tg, izd, kw = self._inputs()
-        S = 3
-        ps_a, us_a = ps, us
-        for _ in range(S):
-            ps_a, us_a = sp.multi_sweep(
-                p0, ps_a, us_a, z, y, g, tg, izd, sweeps=1, **kw)
-        ps_m, us_m = sp.multi_sweep(p0, ps, us, z, y, g, tg, izd,
-                                              sweeps=S, **kw)
-        np.testing.assert_array_equal(np.asarray(us_m), np.asarray(us_a))
-        np.testing.assert_array_equal(np.asarray(ps_m), np.asarray(ps_a))
-
-        us_r, ps_r = us, ps
-        for _ in range(S):
-            ps_c, us_c, J = sp.unified_sweep(
-                p0, ps_r, us_r, z, y, g, tg, izd, **kw)
-            us_r = self._pick(J, us_c, 1)
-            ps_r = self._pick(J, ps_c, 1)
-        # ulp-level contraction-order noise can flip a line-search tie in
-        # a late sweep; bounded by the cross-backend solver tolerance.
-        np.testing.assert_allclose(np.asarray(us_m), np.asarray(us_r),
-                                   rtol=2e-2, atol=5e-3)
-
-    def test_nan_candidates_fall_back_to_nominal(self):
-        """Scenarios whose line-search costs are ALL non-finite (NaN in
-        the edge gradient poisons every candidate's J) must keep the
-        nominal trajectory via the in-kernel NaN-guarded first-wins pick,
-        while unpoisoned scenarios are solved normally — matching the
-        XLA-side pick semantics exactly."""
-        p0, ps, us, z, y, g, tg, izd, kw = self._inputs()
-        B = g.shape[-1]
-        bad = np.zeros(B, bool)
-        bad[::7] = True
-        g = jnp.where(jnp.asarray(bad), jnp.nan, g)
-
-        ps_m, us_m = sp.multi_sweep(p0, ps, us, z, y, g, tg, izd,
-                                    sweeps=1, **kw)
-        assert np.isfinite(np.asarray(us_m)).all()
-        assert np.isfinite(np.asarray(ps_m)).all()
-        # poisoned scenarios: nominal kept bit-exactly
-        np.testing.assert_array_equal(np.asarray(us_m)[..., bad],
-                                      np.asarray(us)[..., bad])
-        np.testing.assert_array_equal(np.asarray(ps_m)[..., bad],
-                                      np.asarray(ps)[..., bad])
-        # unpoisoned scenarios: identical to the reference pick
-        ps_c, us_c, J = sp.unified_sweep(p0, ps, us, z, y, g, tg, izd, **kw)
-        us_r = self._pick(J, us_c, 1)
-        ps_r = self._pick(J, ps_c, 1)
-        ok = ~bad
-        np.testing.assert_allclose(np.asarray(us_m)[..., ok],
-                                   np.asarray(us_r)[..., ok],
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(ps_m)[..., ok],
-                                   np.asarray(ps_r)[..., ok],
-                                   rtol=1e-5, atol=1e-5)
-
-
-class TestFullSolve:
-    """full_solve == the whole ADMM chain (multi_sweep per iteration +
-    projection/dual updates + feasible rollout of z) in one launch."""
-
-    def test_full_solve_matches_admm_chain(self):
-        rng = np.random.default_rng(11)
-        H, m, B = 6, 4, 128
+    @pytest.mark.parametrize("qe", [0.0, 0.1])
+    def test_backward_gains_match_riccati(self, qe):
+        """Gains of the lanes backward sweep == ``riccati.backward`` on the
+        analytic expansion of the same augmented cost (split state order)."""
+        p0, us, z, y, g, tg, depth = self._inputs(11)
+        q, r, rho, dt, m = 1.0, 0.01, 0.1, 1 / 30, self.M
         n, c = 2 * m, 6
-        S, M, ul = 2, 3, 1.0
-        kw = dict(m=m, q=1.0, r=0.01, rho=0.1, qe=0.1, dt=1 / 30,
-                  pack=False)
-        p0 = jnp.asarray(rng.uniform(-.5, .5, (n, B)), jnp.float32)
-        us0 = jnp.asarray(rng.normal(size=(H, c, B)) * 0.1, jnp.float32)
-        g = jnp.asarray(rng.normal(size=(H + 1, n, B)) * 0.2, jnp.float32)
-        tg = jnp.asarray(rng.uniform(-.4, .4, (n, B)), jnp.float32)
-        izd = jnp.asarray(rng.uniform(0.2, 1.0, (m, B)), jnp.float32)
-        zg = (jnp.zeros((H, c, n, B)), jnp.zeros((H, c, B)))
-        zpg = jnp.zeros((H + 1, n, B))
+        ps = jax.vmap(lambda p, u, d: dynamics.rollout(p, u, d, dt))(
+            p0, us, depth)
+        ps_s, g_s, tg_s = (self._split(np.asarray(a)) for a in (ps, g, tg))
 
-        def rollout(ctrl, z, y):
-            return sp.forward_sweep(p0, jnp.zeros((H + 1, n, B)), ctrl,
-                                    *zg, z, y, zpg, tg, izd, **kw)[0][:, 0]
+        def ref_one(ps_b, us_b, z_b, y_b, g_b, tg_b, d_b):
+            fx, fu = jax.vmap(lambda p, u: dynamics.linearize_analytic(
+                p, u, d_b, dt))(ps_b[:-1], us_b)
+            perm = np.concatenate([np.arange(0, n, 2), np.arange(1, n, 2)])
+            fx = fx[:, perm][:, :, perm]
+            fu = fu[:, perm]
+            p_s = self._split(ps_b)
+            lx = 2 * q * (p_s[:-1] - self._split(tg_b)) \
+                + qe * self._split(g_b)[:-1]
+            lu = 2 * r * us_b + rho * (us_b - z_b + y_b)
+            lxx = jnp.broadcast_to(2 * q * jnp.eye(n), (self.H, n, n))
+            luu = jnp.broadcast_to((2 * r + rho) * jnp.eye(c),
+                                   (self.H, c, c))
+            lux = jnp.zeros((self.H, c, n))
+            vx = 2 * q * (p_s[-1] - self._split(tg_b)) \
+                + qe * self._split(g_b)[-1]
+            vxx = 2 * q * jnp.eye(n)
+            return riccati.backward(fx, fu, lx, lu, lxx, luu, lux, vx, vxx)
 
-        z = jnp.clip(us0, -ul, ul)
-        y = jnp.zeros_like(us0)
-        ps_a, us_a = rollout(us0, z, y), us0
-        for _ in range(M):
-            ps_a, us_a = sp.multi_sweep(p0, ps_a, us_a, z, y, g, tg, izd,
-                                        sweeps=S, **kw)
-            z = jnp.clip(us_a + y, -ul, ul)
-            y = y + us_a - z
-        ps_ref = rollout(z, z, y)
+        want = jax.vmap(ref_one)(ps, us, z, y, g, tg, depth)
+        lanes = lambda a: jnp.moveaxis(jnp.asarray(a), 0, -1)
+        K, k = sweep.backward_sweep(
+            lanes(ps_s), lanes(us), lanes(z), lanes(y), lanes(g_s),
+            lanes(tg_s), lanes(1.0 / depth), m=m, q=q, r=r, rho=rho, qe=qe,
+            dt=dt)
+        np.testing.assert_allclose(np.asarray(jnp.moveaxis(K, -1, 0)),
+                                   np.asarray(want.K), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(np.asarray(jnp.moveaxis(k, -1, 0)),
+                                   np.asarray(want.k), rtol=2e-4, atol=2e-5)
 
-        ps_f, z_f, us_f = sp.full_solve(
-            p0, rollout(us0, jnp.clip(us0, -ul, ul), jnp.zeros_like(us0)),
-            us0, g, tg, izd, sweeps=S, admm_iters=M, u_limit=ul, **kw)
-        np.testing.assert_array_equal(np.asarray(z_f), np.asarray(z))
-        np.testing.assert_array_equal(np.asarray(us_f), np.asarray(us_a))
-        np.testing.assert_array_equal(np.asarray(ps_f), np.asarray(ps_ref))
-
-    @pytest.mark.parametrize("relax", [1.0, 1.6])
-    def test_solver_full_path_matches_scan_path(self, relax):
-        """Solver-level: the one-launch whole-solve path
-        (``MPCConfig.full_solve=True`` — a jit-static config field, so the
-        two paths trace as distinct executables) produces the same Solution
-        as the scan-of-multi-sweep path under edge_refresh="solve" —
-        including the in-kernel over-relaxed ADMM update
-        (cfg.admm_relax != 1)."""
-        import dataclasses
-
-        rng = np.random.default_rng(13)
-        edge = jnp.asarray(rng.uniform(0, 255, (32, 128)), jnp.float32)
-        scen = None
-        results = {}
-        for flag in (False, True):
-            cfg = MPCConfig(horizon=4, num_features=2, ilqr_iters=2,
-                            admm_iters=2, edge_refresh="solve",
-                            admm_relax=relax, full_solve=flag,
-                            admm_iters_extra=0)  # fixed-budget comparison
-            mpc = VisualServoMPC(cfg)
-            if scen is None:
-                scen = mpc.random_scenarios(jax.random.PRNGKey(17), 128)
-            sol = mpc.solve_batch(edge, scen)
-            results[flag] = jax.tree.map(np.asarray, sol)
-        # Solution.dual is None on the full_solve path (the kernel's
-        # duals live in VMEM scratch) — compare the solution fields.
-        assert results[True].dual is None
-        for field in ("us", "ps", "cost", "primal_residual"):
-            np.testing.assert_allclose(
-                getattr(results[True], field),
-                getattr(results[False], field), rtol=1e-5, atol=1e-5)
+    def test_alpha_zero_candidate_is_nominal(self):
+        """Candidate 0 (alpha=0) of the forward sweep reproduces the
+        nominal trajectory exactly, so the argmin over candidates is the
+        'did anything improve' test."""
+        p0, us, z, y, g, tg, depth = self._inputs(13)
+        m, dt = self.M, 1 / 30
+        lanes = lambda a: jnp.moveaxis(jnp.asarray(a), 0, -1)
+        p0_l = lanes(self._split(p0))
+        izd = lanes(1.0 / depth)
+        ps_l = sweep.rollout(p0_l, lanes(us), izd, dt, m)
+        kw = dict(m=m, q=1.0, r=0.01, rho=0.1, qe=0.1, dt=dt)
+        K, k = sweep.backward_sweep(ps_l, lanes(us), lanes(z), lanes(y),
+                                    lanes(self._split(g)),
+                                    lanes(self._split(tg)), izd, **kw)
+        ps_c, us_c, J = sweep.forward_sweep(
+            p0_l, ps_l, lanes(us), K, k, lanes(z), lanes(y),
+            lanes(self._split(g)), lanes(self._split(tg)), izd, **kw)
+        assert ps_c.shape == (self.H + 1, len(sweep.ALPHAS), 2 * m, self.B)
+        assert us_c.shape == (self.H, len(sweep.ALPHAS), 6, self.B)
+        np.testing.assert_array_equal(np.asarray(ps_c[:, 0]),
+                                      np.asarray(ps_l))
+        np.testing.assert_array_equal(np.asarray(us_c[:, 0]),
+                                      np.asarray(lanes(us)))
+        assert np.isfinite(np.asarray(J)).all()
 
 
 class TestPickCandidates:
-    """solver._pick_candidates: the XLA-side twin of the kernels'
-    first-wins winner select (sweep_pallas._select_winner)."""
+    """solver._pick_candidates: the first-wins, NaN-guarded winner select
+    over line-search candidates."""
 
     def test_losing_nan_candidate_cannot_poison_winner(self):
         """A NaN in a LOSING candidate must not leak into the finite
-        winner (regression: the one-hot contraction computed 0.0 * NaN =
-        NaN in the winner's lane; the fused/reference backends were
-        immune, breaking backend equivalence on diverging line searches)."""
+        winner (regression: a one-hot contraction computed 0.0 * NaN =
+        NaN in the winner's lane, breaking backend equivalence on
+        diverging line searches)."""
         from openmp_parallel_computing_tpu.models.mpc import solver as S
 
         # 3 candidates x 4 scenarios; candidate 2 diverged (NaN) in
@@ -363,81 +245,3 @@ class TestPickCandidates:
             np.asarray(cand), np.argmin(np.asarray(J), 0)[None, None], 0)[0]
         np.testing.assert_array_equal(
             np.asarray(S._pick_candidates(J, cand, 0, 1)), want)
-
-
-class TestScratchEstimates:
-    """The solver's hand-maintained VMEM admission guards
-    (``solver.sweep_vmem_estimates``) must equal the VMEM the kernels
-    actually request — an estimate that under-counts admits configs
-    Mosaic cannot compile on real chips (the guard exists because
-    interpret mode hides scratch pressure entirely)."""
-
-    H, MF = 7, 3          # odd/unusual sizes force fresh jit traces
-    N, C, TILE = 6, 6, sp.LANE
-
-    def _capture(self, monkeypatch, call):
-        """Run ``call`` with pl.pallas_call wrapped to record the
-        scratch_shapes of every launch; returns total scratch bytes."""
-        captured = []
-        real = sp.pl.pallas_call
-
-        def wrapper(*a, **kw):
-            if kw.get("scratch_shapes"):
-                captured.append(list(kw["scratch_shapes"]))
-            return real(*a, **kw)
-
-        monkeypatch.setattr(sp.pl, "pallas_call", wrapper)
-        call()
-        assert len(captured) == 1, "expected exactly one scratched launch"
-        return sum(int(np.prod(ref.shape)) * np.dtype(ref.dtype).itemsize
-                   for ref in captured[0])
-
-    def _args(self):
-        H, n, c, mf, B = self.H, self.N, self.C, self.MF, self.TILE
-        rng = np.random.default_rng(5)
-        ps = jnp.asarray(rng.normal(size=(H + 1, n, B)) * 0.2, jnp.float32)
-        us = jnp.asarray(rng.normal(size=(H, c, B)) * 0.1, jnp.float32)
-        g = jnp.zeros((H + 1, n, B), jnp.float32)
-        target = jnp.asarray(rng.normal(size=(n, B)) * 0.2, jnp.float32)
-        izd = jnp.asarray(rng.uniform(0.3, 1.0, (mf, B)), jnp.float32)
-        kw = dict(m=mf, q=1.0, r=0.01, rho=0.1, qe=0.0, dt=1 / 30)
-        return ps[0], ps, us, jnp.clip(us, -1, 1), jnp.zeros_like(us), \
-            g, target, izd, kw
-
-    def test_unified(self, monkeypatch):
-        from openmp_parallel_computing_tpu.models.mpc.solver import (
-            sweep_vmem_estimates)
-
-        p0, ps, us, z, y, g, target, izd, kw = self._args()
-        got = self._capture(monkeypatch, lambda: jax.block_until_ready(
-            sp.unified_sweep(p0, ps, us, z, y, g, target, izd, **kw)))
-        est = sweep_vmem_estimates(self.H, self.N, self.C, len(sp.ALPHAS),
-                                   self.TILE)
-        assert got == est["unified"]
-
-    def test_multi(self, monkeypatch):
-        from openmp_parallel_computing_tpu.models.mpc.solver import (
-            sweep_vmem_estimates)
-
-        p0, ps, us, z, y, g, target, izd, kw = self._args()
-        got = self._capture(monkeypatch, lambda: jax.block_until_ready(
-            sp.multi_sweep(p0, ps, us, z, y, g, target, izd, sweeps=2,
-                           **kw)))
-        # multi_sweep additionally holds its whole-array outputs (nominal
-        # trajectory + controls) resident in VMEM; the estimate counts them.
-        resident = ((self.H + 1) * self.N + self.H * self.C) * self.TILE * 4
-        est = sweep_vmem_estimates(self.H, self.N, self.C, len(sp.ALPHAS),
-                                   self.TILE)
-        assert got + resident == est["multi"]
-
-    def test_full(self, monkeypatch):
-        from openmp_parallel_computing_tpu.models.mpc.solver import (
-            sweep_vmem_estimates)
-
-        p0, ps, us, z, y, g, target, izd, kw = self._args()
-        got = self._capture(monkeypatch, lambda: jax.block_until_ready(
-            sp.full_solve(p0, ps, us, g, target, izd, sweeps=2,
-                          admm_iters=2, u_limit=1.0, relax=1.3, **kw)))
-        est = sweep_vmem_estimates(self.H, self.N, self.C, len(sp.ALPHAS),
-                                   self.TILE)
-        assert got == est["full"]
